@@ -1,0 +1,21 @@
+"""dvt_circuits_tpu_torch — the DKG fault-proving framework on PyTorch and CUDA.
+
+The PyTorch port of ``dvt_circuits_tpu`` (the JAX/TPU package, which stays
+the reference).  Module names mirror the JAX package:
+
+  * ``hostcrypto``, ``dkg``, ``circuits``, ``utils`` — host layers, copied
+  * ``field``   — BabyBear and its quartic extension, int64 standard form
+  * ``hash``    — Poseidon2 and Keccak-f[1600] (hand-written CUDA kernels
+    beside plain PyTorch versions), SHA-256 constants
+  * ``ntt``     — NTT and coset LDE along axis 0
+  * ``pcs``     — Merkle commitments, FRI, Fiat–Shamir challenger
+  * ``stark``   — AIRs and the phase prover
+  * ``prover``  — the proof pipeline and containers
+  * ``cli``     — ``prove`` / ``execute``
+
+Entry points take a ``device`` (default ``"cuda"``) and raise when the card
+is missing; nothing falls back to the CPU unless the caller asks for it.
+The port imports nothing from ``dvt_circuits_tpu`` and never imports jax.
+"""
+
+__version__ = "0.1.0"

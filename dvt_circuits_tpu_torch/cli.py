@@ -1,0 +1,158 @@
+"""Host CLI of the PyTorch port: ``prove`` and ``execute``.
+
+Port of ``dvt_circuits_tpu/cli.py`` with the same flags (``--setup``,
+``--auth-commitment``, ``--type``, ``-i``, ``-o``, ``--num-queries``,
+``--log-blowup``, ``--pow-bits``) and exit codes (guest panic or any host
+error → 1), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch path).  ``prove`` prints the artifact fingerprint
+keccak256(sha256(proof file)) through the Keccak kernel.  ``verify``,
+the schema commands and ``node`` are not ported yet.
+
+    python -m dvt_circuits_tpu_torch.cli --auth-commitment prove \\
+        --type=bad-share -i scenario.json -o proof.bin
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+
+from .circuits.registry import CIRCUITS, get_circuit
+from .dkg.types import DeserializeError
+from .hash.keccak import keccak256_batch
+from .prover.pipeline import ProveError, execute_circuit, prove_circuit, save_proof
+from .stark.config import DEFAULT_CONFIG, StarkConfig
+
+
+def _style_error(msg: str) -> str:
+    return f"\x1b[1;31m❌ {msg}\x1b[0m"
+
+
+def _style_success(msg: str) -> str:
+    return f"\x1b[1;32m✅ {msg}\x1b[0m"
+
+
+def _style_cyan(msg: str) -> str:
+    return f"\x1b[1;36m🔎 {msg}\x1b[0m"
+
+
+class CliError(RuntimeError):
+    pass
+
+
+def _artifact_fingerprint(path: str, device="cuda") -> str:
+    """keccak256(sha256(artifact)) of a proof file; the inner SHA-256 keeps
+    the Keccak input to one sponge block."""
+    with open(path, "rb") as f:
+        inner = hashlib.sha256(f.read()).digest()
+    return keccak256_batch([inner], device=device)[0].hex()
+
+
+def _read_json(path: str):
+    if not os.path.exists(path):
+        raise CliError(f"File not found: {path}")
+    with open(path) as f:
+        try:
+            return json.load(f)
+        except json.JSONDecodeError as e:
+            raise CliError(f"Invalid JSON in '{path}': {e}") from None
+
+
+def _load_typed(circuit_name: str, path: str, auth: bool, setup: str = "secp-commitment"):
+    spec = get_circuit(circuit_name, setup)
+    raw = _read_json(path)
+    try:
+        return spec.data_type.from_json(raw, spec.setup.layout, auth)
+    except DeserializeError as e:
+        raise CliError(f"Failed to read input data: {e}") from None
+
+
+def _stark_config(args) -> StarkConfig:
+    return StarkConfig(
+        log_blowup=args.log_blowup,
+        num_queries=args.num_queries,
+        proof_of_work_bits=args.pow_bits,
+        log_final_poly_len=DEFAULT_CONFIG.log_final_poly_len,
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dvt-prover-torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument(
+        "--setup",
+        choices=["secp-commitment", "bls-commitment"],
+        default="secp-commitment",
+        help="identity-cryptography setup",
+    )
+    ap.add_argument(
+        "--auth-commitment",
+        action="store_true",
+        default=os.environ.get("DVT_AUTH_COMMITMENT") == "1",
+        help="enable the auth_commitment variant (commitment hash+signature)",
+    )
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prove", help="generate a proof for an input scenario")
+    p.add_argument("--input-file", "-i", required=True)
+    p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--output-file-path", "-o", default=None)
+    p.add_argument("--num-queries", type=int, default=DEFAULT_CONFIG.num_queries)
+    p.add_argument("--log-blowup", type=int, default=DEFAULT_CONFIG.log_blowup)
+    p.add_argument("--pow-bits", type=int, default=DEFAULT_CONFIG.proof_of_work_bits)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    p = sub.add_parser("execute", help="dry-run the witness program")
+    p.add_argument("--input-file", "-i", required=True)
+    p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--show-report", action="store_true", default=False)
+    return ap
+
+
+def run(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    auth = args.auth_commitment
+    try:
+        data = _load_typed(args.subtype, args.input_file, auth, args.setup)
+        if args.command == "execute":
+            result = execute_circuit(args.subtype, data, auth, args.setup)
+            if result.exit_code != 0:
+                print(_style_error(f"Verification failed: {result.panic_message}"))
+                return 1
+            if args.show_report:
+                print(_style_cyan("Verification report:"))
+                print(
+                    f"commits: {result.commit_count}, "
+                    f"public values: {len(result.public_values)} bytes"
+                )
+            return 0
+
+        try:
+            container = prove_circuit(
+                args.subtype, data, auth, _stark_config(args), args.setup, args.device
+            )
+        except ProveError as e:
+            print(_style_error(f"Proof generation failed: {e}"))
+            return 1
+        path = args.output_file_path or f"{args.input_file}_proof.bin"
+        save_proof(container, path)
+        print(_style_success("Proof saved to:"), path)
+        print(f"Artifact keccak256: {_artifact_fingerprint(path, args.device)}")
+        return 0
+    except CliError as e:
+        print(_style_error(str(e)))
+        return 1
+    except Exception as e:  # any unexpected host error → exit 1
+        print(_style_error(f"{type(e).__name__}: {e}"))
+        return 1
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()

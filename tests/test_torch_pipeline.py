@@ -1,0 +1,148 @@
+"""Port parity for the whole slice: ``prove_circuit("bad-share")`` on the
+CPU equals the JAX package's container (numpy host prover) field by field
+except ``timing``, and the JAX verifier accepts it; the CLI ``prove``
+matches the JAX CLI; the port imports no jax and nothing of the JAX
+package."""
+
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from dvt_circuits_tpu import cli as jax_cli
+from dvt_circuits_tpu.prover import pipeline as jax_pipeline
+from dvt_circuits_tpu.stark.config import TEST_CONFIG as JAX_TEST_CONFIG
+from dvt_circuits_tpu_torch import cli
+from dvt_circuits_tpu_torch.dkg.keys import BlsDkgWithSecp256kCommitment
+from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
+from dvt_circuits_tpu_torch.dkg.types import SHA256Raw
+from dvt_circuits_tpu_torch.dkg.verification import compute_seed_exchange_hash
+from dvt_circuits_tpu_torch.prover import pipeline
+from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _pre_curve_fault():
+    """Auth seed exchange 0 → 1 whose dst_base_hash lies outside the
+    committee, re-hashed and re-signed: the guest slashes before the curve
+    check (dkg/verification.py:98-105)."""
+    com = DkgCommittee(3, 2)
+    data = com.shared_data(0, 1, True)
+    sec = data.seeds_exchange_commitment
+    sec.shared_secret.dst_base_hash = SHA256Raw(hashlib.sha256(b"outsider").digest())
+    h = compute_seed_exchange_hash(BlsDkgWithSecp256kCommitment, sec)
+    sec.commitment.hash = h
+    sec.commitment.signature = com.secp_keys[0].sign(bytes(h)).to_bytes()
+    return data
+
+
+def _curve_fault():
+    return DkgCommittee(3, 2).shared_data_bad_secret(0, 1, True)
+
+
+def _jax_data(data):
+    """The same scenario as the JAX package's typed input (via its JSON)."""
+    from dvt_circuits_tpu.circuits.registry import get_circuit
+
+    spec = get_circuit("bad-share")
+    return spec.data_type.from_json(
+        json.loads(json.dumps(data.to_json(True))), spec.setup.layout, True
+    )
+
+
+def _without_timing(container):
+    return {k: v for k, v in container.items() if k != "timing"}
+
+
+@pytest.mark.parametrize("scenario, g1_off", [(_pre_curve_fault, False), (_curve_fault, True)],
+                         ids=["pre-curve-fault", "curve-fault-DVT_G1=0"])
+def test_container_equals_jax_and_verifies(scenario, g1_off, monkeypatch):
+    monkeypatch.setenv("DVT_PROVER", "host")
+    if g1_off:
+        monkeypatch.setenv("DVT_G1", "0")
+    data = scenario()
+    ours = pipeline.prove_circuit("bad-share", data, True, TEST_CONFIG, device="cpu")
+    theirs = jax_pipeline.prove_circuit("bad-share", _jax_data(data), True, JAX_TEST_CONFIG)
+    assert ours.keys() == theirs.keys()
+    for key in theirs:
+        if key != "timing":
+            assert ours[key] == theirs[key], key
+    assert [g["kind"] for g in ours["gadgets"]] == ["sha256"]
+    assert (ours["g1_omitted"] > 0) == g1_off
+    res = jax_pipeline.verify_proof(ours, "bad-share")
+    assert res.binding == "hash-bound"
+    assert pipeline.container_digest(ours) == pipeline.container_digest(theirs)
+
+
+def test_recorded_g1_relation_raises_without_opt_out(monkeypatch):
+    monkeypatch.delenv("DVT_G1", raising=False)
+    with pytest.raises(pipeline.ProveError, match="G1"):
+        pipeline.prove_circuit("bad-share", _curve_fault(), True, TEST_CONFIG, device="cpu")
+
+
+def test_cli_prove_matches_jax_cli(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("DVT_PROVER", "host")
+    monkeypatch.setenv("DVT_NO_BANNER", "1")
+    scenario = tmp_path / "scenario.json"
+    scenario.write_text(json.dumps(_pre_curve_fault().to_json(True)))
+    flags = ["--num-queries", "12", "--pow-bits", "6"]
+    ours_path, theirs_path = tmp_path / "ours.bin", tmp_path / "theirs.bin"
+
+    assert cli.run(["--auth-commitment", "prove", "--type=bad-share", "-i", str(scenario),
+                    "-o", str(ours_path), "--device", "cpu", *flags]) == 0
+    ours_out = capsys.readouterr().out
+    assert jax_cli.run(["--auth-commitment", "prove", "--type=bad-share", "-i", str(scenario),
+                        "-o", str(theirs_path), *flags]) == 0
+    theirs_out = capsys.readouterr().out
+
+    ours = pipeline.load_proof(str(ours_path))
+    theirs = jax_pipeline.load_proof(str(theirs_path))
+    assert _without_timing(ours) == _without_timing(theirs)
+    line = re.compile(r"Artifact keccak256: ([0-9a-f]{64})", re.I)
+    # each CLI fingerprints its own file; both implementations agree on both
+    assert line.search(ours_out).group(1) == jax_cli._artifact_fingerprint(str(ours_path))
+    assert line.search(theirs_out).group(1) == cli._artifact_fingerprint(
+        str(theirs_path), device="cpu"
+    )
+
+
+def test_execute_cli(tmp_path, capsys):
+    scenario = tmp_path / "scenario.json"
+    scenario.write_text(json.dumps(_pre_curve_fault().to_json(True)))
+    args = ["--auth-commitment", "execute", "--type=bad-share", "-i", str(scenario)]
+    assert cli.run(args + ["--show-report"]) == 0
+    assert "commits: 4" in capsys.readouterr().out
+    valid = tmp_path / "valid.json"
+    valid.write_text(json.dumps(DkgCommittee(3, 2).shared_data(0, 1, True).to_json(True)))
+    assert cli.run(["--auth-commitment", "execute", "--type=bad-share", "-i", str(valid)]) == 1
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import dvt_circuits_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'dvt_circuits_tpu' or m.startswith('dvt_circuits_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_no_import_of_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+[^#\n]*\bdvt_circuits_tpu(?!_torch)\b", re.M)
+    files = sorted((ROOT / "dvt_circuits_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 40
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
