@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dvt_circuits_tpu_torch``) on one
-NVIDIA GPU — the quickest proof that the port still builds and proves there.
+NVIDIA GPU — the quickest proof that the port still builds, proves and
+verifies there.
 
     python3 chip_smoke.py
 
@@ -8,26 +9,44 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every kernel from ``dvt_circuits_tpu_torch/csrc`` (one nvcc per
-     source, in parallel);
+     source, in parallel); count their integer instructions in the SASS
+     (K3 must hold at least 512 IMAD per element: its chain is not folded);
   3. K1 (Poseidon2): kernel vs plain PyTorch on 2^20 random states plus
      all-0 / all-(p−1) rows and at the prover's shapes, bit-equal; 16 rows
      vs the scalar ``s_permute``; CUDA-event timings;
   4. K2 (Keccak-f[1600]): kernel vs plain on 2^16 states, bit-equal;
      Keccak-256 / SHA3-256 known digests; timings;
-  5. the main path: ``prove_circuit("bad-share")`` at ``DEFAULT_CONFIG`` for
-     a 10-operator, 7-of-10 committee whose seed exchange names a
+  5. K3 (the multiply-add probe): kernel vs plain on (16, 2^18) random
+     values plus rows of 0, 1 and 2^32−1, bit-equal; timings; its IMAD rate;
+  6. the pre-curve bad-share path: ``prove_circuit("bad-share")`` at
+     ``DEFAULT_CONFIG`` for a 7-of-10 committee whose seed exchange names a
      destination outside the committee (the guest slashes before the
      curve check), cold then warm, with launch counts; the container's
      fingerprint through K2; Merkle openings re-checked with the scalar
      permutation; the same proof on the CPU (plain path) must give equal
      container bytes without ``timing``; the CLI ``prove`` as a subprocess;
-  6. one ``{"kernels": [...]}`` line, the card line, and as the last line
+  7. the probe path: ``probe_vpu.main()`` in-process (K3 launches) and
+     ``python -m dvt_circuits_tpu_torch.probe_vpu`` as a subprocess;
+  8. the curve paths at full width, 7-of-10: the curve-fault bad-share
+     (tables stream, sha256, g1mul with chains 256 + 6×32) and
+     bad-partial-key (6 chains of 32 bits), cold then warm, profiled; every
+     chain's result equals the host ``g1_mul``; openings re-checked; the
+     port's own strict verifier on the card says ``curve-bound+sig``;
+  9. where the time of one g1mul table goes (the prover's phases timed
+     one by one at the curve fault's table shape);
+ 10. GPU == CPU at the CPU tests' inputs: the 2-of-3 curve fault and
+     bad-partial-key at ``TEST_CONFIG`` give equal container bytes;
+ 11. the CLI ``prove`` of the 7-of-10 curve fault and ``verify
+     --show-report`` of its file, as subprocesses;
+ 12. one ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
+Every path runs with the launch counts set to 0 just before it and read
+just after; a kernel that a path should launch and did not fails the run.
 Randomness comes from numpy with fixed seeds.  Bounds: bytes each kernel
 must move over 3.35 TB/s, and its integer instructions (counted in the
-compiled SASS, ``kernel_work``) over the int32 instruction rate (see
-``_INT32_OPS_PER_S``); the larger of the two.
+compiled SASS, ``kernel_work``) over the int32 instruction rates (see
+``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the larger of the two.
 """
 
 from __future__ import annotations
@@ -53,18 +72,26 @@ _BYTES_PER_S = 3.35e12
 #: a mix peaks at the fp32 lane rate: the data sheet's 67 TFLOP/s (an FMA
 #: counts 2) is 33.5e12 instructions per second
 _INT32_OPS_PER_S = 67e12 / 2
+#: IMAD alone runs on one of the two pipes, at half that rate: K3, a chain of
+#: nothing but IMAD, measures 0.46 of _INT32_OPS_PER_S on the H100
+_IMAD_PER_S = _INT32_OPS_PER_S / 2
 
-#: bytes each permutation must move: K1 16 int64 words in and out, K2 25
+#: bytes each permutation must move: K1 16 int64 words in and out, K2 25;
+#: K3 one int64 in and out per element
 K1_BYTES_PER_PERM = 2 * 16 * 8
 K2_BYTES_PER_PERM = 2 * 25 * 8
+K3_BYTES_PER_ELEM = 2 * 8
 #: integer ALU opcodes counted as work in the compiled kernels
 _INT_OPCODES = {"IMAD", "IADD3", "ISETP", "VIADD", "SHF", "LOP3", "SEL", "IMNMX", "LEA", "PRMT"}
 
 SEED = 20261016
+_T0 = time.perf_counter()
 
 
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line, prefixed with the seconds since the script started (the
+    whole run must stay well inside its time limit)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def _card_line() -> str:
@@ -105,25 +132,40 @@ def _sass_opcodes(lib) -> dict:
 
 
 def kernel_work(libs: dict) -> dict:
-    """Integer instructions per permutation, from the compiled SASS: K1 is
-    straight-line code (one thread per state), so its static count is its
-    work; K2 loops over 24 rounds, so its work is 24 × the LOP3 and SHF of
-    the round body (its only logic instructions)."""
+    """Integer instructions per permutation or element, as (all, IMAD),
+    from the compiled SASS: K1 and K3 are straight-line code (one thread
+    per state or element), so their static counts are their work; K2 loops
+    over 24 rounds, so its work is 24 × the LOP3 and SHF of the round body
+    (its only logic instructions)."""
     k1 = _sass_opcodes(libs["poseidon2"])
     k2 = _sass_opcodes(libs["keccak"])
+    k3 = _sass_opcodes(libs["mulchain"])
+
+    def ints(ops):
+        return sum(v for k, v in ops.items() if k in _INT_OPCODES)
+
     work = {
-        "poseidon2_permute": sum(v for k, v in k1.items() if k in _INT_OPCODES),
-        "keccak_f1600": 24 * (k2.get("LOP3", 0) + k2.get("SHF", 0)),
+        "poseidon2_permute": (ints(k1), k1.get("IMAD", 0)),
+        "keccak_f1600": (24 * (k2.get("LOP3", 0) + k2.get("SHF", 0)), 0),
+        "mulchain": (ints(k3), k3.get("IMAD", 0)),
     }
-    _log(f"SASS integer instructions per permutation: {work} "
+    _log(f"SASS integer instructions (all, IMAD) per permutation or element: {work} "
          f"(K1 opcodes {dict(sorted(k1.items(), key=lambda kv: -kv[1])[:6])})")
-    if min(work.values()) == 0:
+    if min(total for total, _ in work.values()) == 0:
         raise AssertionError("no integer instructions found in the kernels' SASS")
+    from dvt_circuits_tpu_torch.probe_vpu import CHAIN
+
+    if work["mulchain"][1] < CHAIN:
+        raise AssertionError(f"K3's SASS holds {work['mulchain'][1]} IMAD, fewer than the "
+                             f"{CHAIN} steps of its chain: the compiler folded it")
     return work
 
 
-def _bound_ms(n: int, ops_per: int, bytes_per: int):
-    t_ops = n * ops_per / _INT32_OPS_PER_S
+def _bound_ms(n: int, work, bytes_per: int):
+    """Least time for n items: bytes over the memory rate, or integer
+    instructions over the issue rate, or IMAD over the FMA pipe's rate."""
+    total, imad = work
+    t_ops = n * max(total / _INT32_OPS_PER_S, imad / _IMAD_PER_S)
     t_bytes = n * bytes_per / _BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -138,7 +180,7 @@ def _max_abs_err_u64(a, b) -> int:
     return err
 
 
-def phase_poseidon2(p2, ops_per_perm: int):
+def phase_poseidon2(p2, work):
     """K1 vs its plain version; returns the kernel record (launches filled later)."""
     P = p2.bb.P
     rng = np.random.default_rng(SEED)
@@ -163,7 +205,7 @@ def phase_poseidon2(p2, ops_per_perm: int):
             raise AssertionError(f"K1 disagrees with permute_plain at N={n}")
         ms = _time_ms(lambda: p2.poseidon2_permute(xs), reps)
         plain_ms = _time_ms(lambda: p2.permute_plain(xs), max(2, reps // 20), warmup=1)
-        bound, by = _bound_ms(n, ops_per_perm, K1_BYTES_PER_PERM)
+        bound, by = _bound_ms(n, work, K1_BYTES_PER_PERM)
         rows.append((n, ms, plain_ms, bound, by))
         _log(f"K1 N={n:>8}: kernel {ms:.6f} ms ({n / ms * 1e3:.4e} perm/s), "
              f"plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})")
@@ -185,7 +227,7 @@ def phase_poseidon2(p2, ops_per_perm: int):
     }
 
 
-def phase_keccak(kk, ops_per_perm: int):
+def phase_keccak(kk, work):
     rng = np.random.default_rng(SEED + 1)
     y = torch.as_tensor(
         rng.integers(-(1 << 63), (1 << 63) - 1, (1 << 16, 25), dtype=np.int64), device="cuda"
@@ -209,7 +251,7 @@ def phase_keccak(kk, ops_per_perm: int):
         ys = y[:n].contiguous()
         ms = _time_ms(lambda: kk.keccak_f1600(ys), reps)
         plain_ms = _time_ms(lambda: kk.keccak_f1600_plain(ys), max(2, reps // 20), warmup=1)
-        bound, by = _bound_ms(n, ops_per_perm, K2_BYTES_PER_PERM)
+        bound, by = _bound_ms(n, work, K2_BYTES_PER_PERM)
         rows.append((n, ms, plain_ms, bound, by))
         _log(f"K2 N={n:>8}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
              f"bound {bound:.9f} ms ({by})")
@@ -223,6 +265,41 @@ def phase_keccak(kk, ops_per_perm: int):
         "shape": [n, 25],
         "launches": None,
         "max_abs_err": k2_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def phase_mulchain(pv, work):
+    """K3 vs its plain version, its time and IMAD rate at the probe's shape."""
+    rng = np.random.default_rng(SEED + 2)
+    n = 1 << 18
+    host = rng.integers(0, 1 << 32, (16, n), dtype=np.int64)
+    edges = np.array([[0], [1], [(1 << 32) - 1]], dtype=np.int64).repeat(n, axis=1)
+    x_all = torch.as_tensor(np.concatenate([host, edges]), device="cuda")
+    k3_err = int((pv.mulchain(x_all) - pv.mulchain_plain(x_all)).abs().max())
+    if k3_err:
+        raise AssertionError("K3 disagrees with mulchain_plain on (16 + 3, 2^18)")
+    _log("K3 mulchain: bit-equal to mulchain_plain on (16, 2^18) plus rows of 0, 1, 2^32-1")
+    x = x_all[:16].contiguous()
+    ms = _time_ms(lambda: pv.mulchain(x), 50)
+    plain_ms = _time_ms(lambda: pv.mulchain_plain(x), 2, warmup=1)
+    bound, by = _bound_ms(x.numel(), work, K3_BYTES_PER_ELEM)
+    imad_per_s = x.numel() * pv.CHAIN / ms * 1e3
+    _log(f"K3 (16, 2^18): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
+         f"({by}); {imad_per_s:.4e} IMAD/s = {imad_per_s / _INT32_OPS_PER_S:.4f} of "
+         f"_INT32_OPS_PER_S, {imad_per_s / _IMAD_PER_S:.4f} of _IMAD_PER_S")
+    return {
+        "name": "mulchain",
+        "route": "cuda",
+        "source": "dvt_circuits_tpu_torch/csrc/mulchain.cu",
+        "replaces": "scripts/probe_vpu.py:21",
+        "shape": [16, n],
+        "launches": None,
+        "max_abs_err": k3_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
@@ -255,33 +332,18 @@ def _bad_share_scenario():
 def _check_openings(proof: dict, n_checked: int = 4) -> None:
     """Re-hash a few outer openings with the scalar permutation and walk
     them to the committed roots (an independent check of the trees)."""
-    from dvt_circuits_tpu_torch.hash.poseidon2 import s_permute
+    from dvt_circuits_tpu_torch.pcs.merkle import verify_opening
     from dvt_circuits_tpu_torch.utils.packing import unpack_u32
-
-    def leaf(row):
-        state = [0] * 16
-        for off in range(0, len(row), 8):
-            chunk = row[off : off + 8]
-            state[:8] = chunk + [0] * (8 - len(chunk))
-            state = s_permute(state)
-        return state[:8]
 
     n_lde = 1 << proof["fri"]["log_n"]
     for q, op in list(zip(proof["fri"]["queries"], proof["query_openings"]))[:n_checked]:
         for name in ("t", "q", "p"):
             if name not in op:
                 continue
-            root = proof[f"root_{name}"]
             for side, index in (("lo", q["index"]), ("hi", q["index"] + n_lde // 2)):
-                row = [int(v) for v in unpack_u32(op[name][side]["row"])]
+                row = unpack_u32(op[name][side]["row"])
                 path = unpack_u32(op[name][side]["path"]).reshape(-1, 8)
-                digest, idx = leaf(row), index
-                for sib in path:
-                    sib = [int(v) for v in sib]
-                    pair = sib + digest if idx & 1 else digest + sib
-                    digest = s_permute(pair)[:8]
-                    idx >>= 1
-                if digest != root:
+                if not verify_opening(proof[f"root_{name}"], index, row, path):
                     raise AssertionError(f"opening of {name} at {index} misses root_{name}")
 
 
@@ -299,6 +361,34 @@ def _log_profile(prof, wall_s: float) -> None:
         _log(f"  device {ev.device_time_total / 1e3:9.3f} ms  calls {ev.count:6d}  {ev.key[:90]}")
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper by record name; each counts its launches."""
+    from dvt_circuits_tpu_torch import probe_vpu
+    from dvt_circuits_tpu_torch.hash import keccak, poseidon2
+
+    return {"poseidon2_permute": poseidon2.poseidon2_permute,
+            "keccak_f1600": keccak.keccak_f1600,
+            "mulchain": probe_vpu.mulchain}
+
+
+def _reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts(path: str, expected) -> dict:
+    """The launch counts of the path just driven; fails if a kernel the path
+    runs was not launched."""
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    _log(f"launches on path {path!r}: {counts}")
+    for name in expected:
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on path {path!r}")
+    return counts
+
+
 def phase_main_path(p2, kk, tmp: Path):
     from dvt_circuits_tpu_torch import cli
     from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit, save_proof
@@ -307,9 +397,7 @@ def phase_main_path(p2, kk, tmp: Path):
     data = _bad_share_scenario()
 
     # -- the measured run: counts reset just before, read just after -------
-    p2.poseidon2_permute.launches = 0
-    kk.keccak_f1600.launches = 0
-    torch.cuda.synchronize()
+    _reset_counts()
     t0 = time.perf_counter()
     container = prove_circuit("bad-share", data, True, DEFAULT_CONFIG, device="cuda")
     proof_path = tmp / "proof.bin"
@@ -317,13 +405,8 @@ def phase_main_path(p2, kk, tmp: Path):
     fingerprint = cli._artifact_fingerprint(str(proof_path), device="cuda")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {"poseidon2_permute": p2.poseidon2_permute.launches,
-                "keccak_f1600": kk.keccak_f1600.launches}
-    _log(f"main path (cold): prove+save+fingerprint {cold_s:.3f} s, timing {container['timing']}, "
-         f"launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = _read_counts("bad-share pre-curve", ("poseidon2_permute", "keccak_f1600"))
+    _log(f"main path (cold): prove+save+fingerprint {cold_s:.3f} s, timing {container['timing']}")
 
     tables = [("stream", container["stark"])] + [
         (g["kind"], g["proof"]) for g in container["gadgets"]
@@ -395,13 +478,227 @@ def phase_main_path(p2, kk, tmp: Path):
                       "warm_timing": warm["timing"]}
 
 
+def phase_probe_path() -> dict:
+    """The probe entry point: in-process (K3's launches), then as a user
+    runs it, a subprocess that must exit 0."""
+    from dvt_circuits_tpu_torch import probe_vpu
+
+    _reset_counts()
+    probe_vpu.main()
+    launches = _read_counts("probe", ("mulchain",))
+    res = subprocess.run([sys.executable, "-m", "dvt_circuits_tpu_torch.probe_vpu"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"probe exited {res.returncode}:\n{res.stdout}\n{res.stderr}")
+    _log(f"probe subprocess: exit 0; {res.stdout.strip()}")
+    return launches
+
+
+def _check_chains(gadget: dict) -> None:
+    """Every chain's proven result equals the host scalar-mul of its public
+    operand by its public scalar."""
+    from dvt_circuits_tpu_torch.hostcrypto.bls12_381 import g1_mul
+    from dvt_circuits_tpu_torch.stark.g1mul_air import G1MulAir
+
+    air = G1MulAir(tuple(gadget["block_counts"]))
+    publics = [int(v) for v in gadget["proof"]["public_values"]]
+    for c in range(len(air.chain_bits)):
+        scalar = int.from_bytes(air.scalar_bytes_of(publics, c), "big")
+        want = g1_mul(air.operand_of(publics, c), scalar)
+        inf, x, y = air.result_of(publics, c)
+        if (inf, None if inf else (x, y)) != (int(want is None), want):
+            raise AssertionError(f"chain {c}: result differs from g1_mul(operand, scalar)")
+
+
+def _log_tables(container: dict) -> list:
+    tables = [("stream", container["stark"])] + [
+        (g["kind"], g["proof"]) for g in container["gadgets"]
+    ]
+    for name, proof in tables:
+        _log(f"table {name}: rows 2^{proof['log_n']}, width {proof['width']}, "
+             f"LDE 2^{proof['fri']['log_n']}, constraints {proof['constraint_count']}")
+    return tables
+
+
+def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_checks: int) -> tuple:
+    """One curve circuit at full width on the card: cold (launches counted)
+    then warm and profiled; the chains, the openings and the port's own
+    strict verifier on the card."""
+    from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit, verify_proof
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
+    from torch.profiler import ProfilerActivity, profile
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    container = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = _read_counts(f"{circuit} curve", ("poseidon2_permute",))
+    _log(f"{circuit} (cold): prove {cold_s:.3f} s, timing {container['timing']}")
+    tables = _log_tables(container)
+    g1 = container["gadgets"][-1]
+    if ([t[0] for t in tables] != ["stream", "sha256", "g1mul"] or container["g1_omitted"]
+            or g1["block_counts"] != chain_bits or g1["proof"]["log_n"] != log_n
+            or g1["proof"]["width"] != 4314):
+        raise AssertionError(f"unexpected tables for {circuit}: "
+                             f"{[(t[0], t[1]['log_n'], t[1]['width']) for t in tables]}, "
+                             f"chains {g1['block_counts']}, g1_omitted {container['g1_omitted']}")
+    _check_chains(g1)
+    for _, proof in tables:
+        _check_openings(proof)
+    _log(f"{circuit}: every chain equals g1_mul; openings re-hashed with s_permute reach their roots")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _log(f"{circuit} (warm): prove {warm_s:.3f} s, timing {warm['timing']}")
+    if container_digest(warm) != container_digest(container):
+        raise AssertionError(f"warm {circuit} container differs from the cold one")
+    # device activity only: ~200k launches, and host-op events would double the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _log_profile(prof, prof_s)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = verify_proof(container, circuit, strict=True, device="cuda")
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_launches = _read_counts(f"{circuit} verify", ("poseidon2_permute",))
+    _log(f"{circuit} verify on cuda: {res} in {verify_s:.3f} s")
+    if (res.binding, res.g1_relations, res.sig_checks) != ("curve-bound+sig", 1, sig_checks):
+        raise AssertionError(f"the port's verifier returned {res} for {circuit}")
+    return container, launches, verify_launches
+
+
+def phase_g1_breakdown() -> None:
+    """Where the time of one g1mul table goes: the prover's phases at the
+    curve fault's table shape (chains 256 + 6×32: 2^12 × 4314, LDE 2^14,
+    ``DEFAULT_CONFIG``) on random chains from a numpy seed, each timed on
+    the host clock between two synchronizes; the device memory peak; and
+    the launches of one constraint quotient (generic ``eval``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvt_circuits_tpu_torch.field import babybear as bb
+    from dvt_circuits_tpu_torch.field import ext
+    from dvt_circuits_tpu_torch.hostcrypto.bls12_381 import G1_GEN, g1_mul
+    from dvt_circuits_tpu_torch.pcs.merkle import MerkleTree, hash_rows
+    from dvt_circuits_tpu_torch.stark import prover as pr
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG as cfg
+    from dvt_circuits_tpu_torch.stark.g1mul_air import G1MulAir
+
+    rng = np.random.default_rng(SEED + 3)
+    air = G1MulAir((256,) + (32,) * 6)
+    chains = [(bytes(rng.integers(0, 256, bits // 8, dtype=np.uint8)),
+               g1_mul(G1_GEN, int(rng.integers(2, 1 << 40)))) for bits in air.chain_bits]
+    trace, publics = air.generate_trace(chains)
+    n = trace.shape[0]
+    log_n = n.bit_length() - 1
+    alpha, zeta, gamma = (tuple(int(v) for v in rng.integers(0, bb.P, ext.D)) for _ in range(3))
+    gzeta = ext.s_mul_base(zeta, bb.two_adic_generator(log_n))
+    dev = torch.device("cuda")
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t_lde = timed("trace LDE", lambda: pr.lde_body(
+        torch.as_tensor(trace.astype(np.int64), device=dev), cfg))
+    p_lde = timed("preprocessed LDE", lambda: pr.lde_body(
+        torch.as_tensor(np.asarray(air.preprocessed_trace(n), dtype=np.int64), device=dev), cfg))
+    timed("leaf sponge of the trace LDE (hash_rows)", lambda: hash_rows(t_lde))
+    tree = timed("trace commit (leaf sponge + compress levels)", lambda: MerkleTree(t_lde))
+    timed("host copy of the committed LDE (MerkleTree._materialize)", tree._materialize)
+    timed("torch.roll copy of the trace LDE", lambda: torch.roll(t_lde, -cfg.blowup, dims=0))
+    tables = pr._domain_tables(log_n, cfg.log_blowup, cfg.shift, dev)
+    q_matrix, q_col_coeffs, count = timed("constraint quotient (generic eval)", lambda: (
+        pr.quotient_body(air, t_lde, p_lde, alpha, publics, tables, log_n, cfg)))
+    opened = timed("openings at zeta and g*zeta", lambda: pr.openings_body(
+        air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, cfg))
+    timed("DEEP codeword", lambda: pr.deep_body(
+        air, t_lde, p_lde, q_matrix, opened, zeta, gzeta, gamma, tables, cfg))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pr.quotient_body(air, t_lde, p_lde, alpha, publics, tables, log_n, cfg)
+        torch.cuda.synchronize()
+    q_launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    _log(f"g1mul table breakdown (2^{log_n} x {air.width}, LDE 2^{log_n + cfg.log_blowup}, "
+         f"{count} constraints), ms on the host clock: "
+         + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+         + f"; device memory peak {peak_gib:.3f} GiB; one quotient: {q_launches} launches")
+
+
+def phase_gpu_equals_cpu() -> None:
+    """The CPU tests' curve inputs (2-of-3 committee, TEST_CONFIG): the card
+    and the plain CPU path give equal containers, so JAX == port-CPU (the
+    tests) == port-GPU."""
+    from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
+    from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit
+    from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
+
+    com = DkgCommittee(3, 2)
+    for circuit, data in (("bad-share", com.shared_data_bad_secret(0, 1, True)),
+                          ("bad-partial-key", com.bad_partial_key_data(1, True))):
+        gpu = prove_circuit(circuit, data, True, TEST_CONFIG, device="cuda")
+        t0 = time.perf_counter()
+        cpu = prove_circuit(circuit, data, True, TEST_CONFIG, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        g, c = container_digest(gpu), container_digest(cpu)
+        _log(f"{circuit} 2-of-3 TEST_CONFIG: gpu prove_ms {gpu['timing']['prove_ms']}, "
+             f"cpu {cpu_s:.3f} s; sha256 without timing gpu {g} cpu {c}")
+        if g != c:
+            raise AssertionError(f"GPU {circuit} container differs from the CPU one")
+
+
+def phase_cli_curve(kk, data, tmp: Path) -> None:
+    """The CLI ``prove`` of the curve fault and ``verify --show-report`` of
+    its file, as a user runs them."""
+    scenario = tmp / "curve_scenario.json"
+    scenario.write_text(json.dumps(data.to_json(True)))
+    proof = tmp / "curve_proof.bin"
+    cli = [sys.executable, "-m", "dvt_circuits_tpu_torch.cli", "--auth-commitment"]
+    for args in (["prove", "--type=bad-share", "-i", str(scenario), "-o", str(proof)],
+                 ["verify", "--type=bad-share", "-i", str(proof), "--show-report",
+                  "--require-curve-binding"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(cli + args, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"CLI {args[0]} exited {res.returncode}:\n{res.stdout}\n"
+                                 f"{res.stderr}")
+        expected = kk.keccak256_batch([hashlib.sha256(proof.read_bytes()).digest()],
+                                      device="cpu")[0].hex()
+        line = [ln for ln in res.stdout.splitlines() if "keccak256: " in ln.lower()]
+        if len(line) != 1 or line[0].split(": ", 1)[1] != expected:
+            raise AssertionError(f"CLI {args[0]} fingerprint line {line} != plain Keccak {expected}")
+        report = "".join(f"; {ln}" for ln in res.stdout.splitlines() if ln.startswith("circuit: "))
+        _log(f"CLI {args[0]} subprocess: exit 0 in {wall_s:.3f} s, fingerprint matches the plain "
+             f"Keccak{report}")
+    if "binding: curve-bound+sig" not in res.stdout:
+        raise AssertionError("CLI verify did not report curve-bound+sig")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
         return 2
     try:
-        from dvt_circuits_tpu_torch import kernels
+        from dvt_circuits_tpu_torch import kernels, probe_vpu
+        from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
         from dvt_circuits_tpu_torch.hash import keccak as kk
         from dvt_circuits_tpu_torch.hash import poseidon2 as p2
     except ImportError as e:
@@ -417,11 +714,27 @@ def main() -> int:
     work = kernel_work(libs)
 
     records = [phase_poseidon2(p2, work["poseidon2_permute"]),
-               phase_keccak(kk, work["keccak_f1600"])]
+               phase_keccak(kk, work["keccak_f1600"]),
+               phase_mulchain(probe_vpu, work["mulchain"])]
+    by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches, _ = phase_main_path(p2, kk, Path(tmp))
+        by_path["bad-share pre-curve"], _ = phase_main_path(p2, kk, Path(tmp))
+        by_path["probe"] = phase_probe_path()
+        com = DkgCommittee(10, 7)
+        curve_data = com.shared_data_bad_secret(0, 1, True)
+        _, by_path["bad-share curve"], by_path["bad-share verify"] = phase_curve_path(
+            "bad-share", curve_data, [256] + [32] * 6, 12, 1)
+        _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
+            "bad-partial-key", com.bad_partial_key_data(1, True), [32] * 6, 11, 2)
+        phase_g1_breakdown()
+        phase_gpu_equals_cpu()
+        phase_cli_curve(kk, curve_data, Path(tmp))
+    # the record's count: the path each kernel serves (K3: the probe)
+    main_path = {"poseidon2_permute": "bad-share curve", "keccak_f1600": "bad-share pre-curve",
+                 "mulchain": "probe"}
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = by_path[main_path[rec["name"]]][rec["name"]]
+        rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -9,9 +9,13 @@ the reference).  Module names mirror the JAX package:
     beside plain PyTorch versions), SHA-256 constants
   * ``ntt``     — NTT and coset LDE along axis 0
   * ``pcs``     — Merkle commitments, FRI, Fiat–Shamir challenger
-  * ``stark``   — AIRs and the phase prover
-  * ``prover``  — the proof pipeline and containers
-  * ``cli``     — ``prove`` / ``execute``
+  * ``stark``   — AIRs (stream, SHA-256, G1 scalar-mul), the phase prover
+    and the verifier
+  * ``prover``  — the proof pipeline, its curve glue, containers and
+    ``verify_proof``
+  * ``cli``     — ``prove`` / ``execute`` / ``verify``
+  * ``probe_vpu`` — the integer multiply-add probe (a CUDA kernel beside
+    its plain PyTorch version)
 
 Entry points take a ``device`` (default ``"cuda"``) and raise when the card
 is missing; nothing falls back to the CPU unless the caller asks for it.

@@ -1,15 +1,18 @@
-"""Host CLI of the PyTorch port: ``prove`` and ``execute``.
+"""Host CLI of the PyTorch port: ``prove``, ``execute`` and ``verify``.
 
 Port of ``dvt_circuits_tpu/cli.py`` with the same flags (``--setup``,
 ``--auth-commitment``, ``--type``, ``-i``, ``-o``, ``--num-queries``,
-``--log-blowup``, ``--pow-bits``) and exit codes (guest panic or any host
-error → 1), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  ``prove`` prints the artifact fingerprint
-keccak256(sha256(proof file)) through the Keccak kernel.  ``verify``,
-the schema commands and ``node`` are not ported yet.
+``--log-blowup``, ``--pow-bits``, ``--show-report``,
+``--require-curve-binding``) and exit codes (guest panic, a rejected proof
+or any host error → 1), plus ``--device`` (default ``cuda``; ``cpu`` runs
+the plain PyTorch path).  ``prove`` and ``verify --show-report`` print the
+artifact fingerprint keccak256(sha256(proof file)) through the Keccak
+kernel.  The schema commands and ``node`` are not ported yet.
 
     python -m dvt_circuits_tpu_torch.cli --auth-commitment prove \\
         --type=bad-share -i scenario.json -o proof.bin
+    python -m dvt_circuits_tpu_torch.cli verify --type=bad-share \\
+        -i proof.bin --show-report
 """
 
 from __future__ import annotations
@@ -23,7 +26,15 @@ import sys
 from .circuits.registry import CIRCUITS, get_circuit
 from .dkg.types import DeserializeError
 from .hash.keccak import keccak256_batch
-from .prover.pipeline import ProveError, execute_circuit, prove_circuit, save_proof
+from .prover.pipeline import (
+    ProveError,
+    VerifyError,
+    execute_circuit,
+    load_proof,
+    prove_circuit,
+    save_proof,
+    verify_proof,
+)
 from .stark.config import DEFAULT_CONFIG, StarkConfig
 
 
@@ -109,13 +120,54 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input-file", "-i", required=True)
     p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
     p.add_argument("--show-report", action="store_true", default=False)
+
+    p = sub.add_parser("verify", help="verify a saved proof")
+    p.add_argument("--input-file", "-i", dest="proof_file", required=True)
+    p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--show-report", action="store_true", default=False)
+    p.add_argument(
+        "--require-curve-binding",
+        action="store_true",
+        default=False,
+        help="reject share-circuit proofs whose curve relations are "
+        "omitted or absent (witness-trust fallback)",
+    )
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
+
+
+def _verify(args) -> int:
+    if not os.path.exists(args.proof_file):
+        raise CliError(f"Failed to load proof from {args.proof_file}")
+    container = load_proof(args.proof_file)
+    try:
+        result = verify_proof(container, args.subtype, strict=args.require_curve_binding,
+                              device=args.device)
+    except VerifyError as e:
+        print(_style_error(f"Verification failed: {e}"))
+        return 1
+    if args.show_report:
+        print(_style_cyan("Proof report:"))
+        print(
+            f"circuit: {container['circuit']}, auth: {container['auth']}, "
+            f"binding: {result.binding}, "
+            f"curve relations: {result.g1_relations} "
+            f"(omitted: {result.g1_omitted}), "
+            f"signature checks re-run: {result.sig_checks}, "
+            f"public values: {len(container['public_values']) // 2} bytes, "
+            f"timing: {container.get('timing')}"
+        )
+        print(f"artifact keccak256: {_artifact_fingerprint(args.proof_file, args.device)}")
+    print(_style_success("Proof verified."))
+    return 0
 
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     auth = args.auth_commitment
     try:
+        if args.command == "verify":
+            return _verify(args)
         data = _load_typed(args.subtype, args.input_file, auth, args.setup)
         if args.command == "execute":
             result = execute_circuit(args.subtype, data, auth, args.setup)

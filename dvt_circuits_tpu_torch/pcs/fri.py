@@ -1,14 +1,16 @@
-"""FRI low-degree proof over BB4 codewords (prover side).
+"""FRI low-degree proof over BB4 codewords.
 
-Port of ``dvt_circuits_tpu/pcs/fri.py:fri_prove`` with the inline fold of
-``stark/fused.py``.  The codeword lives on a coset s·K in natural order;
+Port of ``dvt_circuits_tpu/pcs/fri.py`` (``fri_prove`` with the inline fold
+of ``stark/fused.py``, and ``fri_verify``).  The codeword lives on a coset s·K in natural order;
 each round commits leaf pairs (v[i], v[i+N/2]) as an (N/2, 8) Merkle
 matrix, then folds with a BB4 challenge β:
 
     v'(x²) = (v(x) + v(−x))/2 + β · (v(x) − v(−x))/(2x)
 
 The final codeword is sent as coefficients (coset iNTT, unscale,
-truncate); then the proof-of-work grind and the query openings.
+truncate); then the proof-of-work grind and the query openings.  The
+verifier walks every query's fold chain at once, as (nq, 4) tensors on the
+challenger's device.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import torch
 from ..field import babybear as bb
 from ..field import ext
 from ..ntt import intt
-from ..utils.packing import pack_u32
+from ..utils.packing import pack_u32, unpack_rows
 from .challenger import DuplexChallenger
-from .merkle import MerkleTree
+from .merkle import MerkleTree, verify_openings_batch
 
 P = bb.P
 _HALF = (P + 1) // 2  # 1/2
@@ -125,3 +127,122 @@ def fri_prove(codeword: torch.Tensor, shift: int, config: FriConfig,
         "queries": queries,
         "log_n": log_n,
     }
+
+
+# ---------------------------------------------------------------------------
+# Verifier
+# ---------------------------------------------------------------------------
+
+
+class FriError(ValueError):
+    pass
+
+
+def field_rows(values, shape, err: str, device) -> torch.Tensor:
+    """Packed blobs or int lists → an int64 tensor of ``shape`` on
+    ``device``; raises FriError unless every value is in [0, p)."""
+    try:
+        arr = unpack_rows(values, shape, err)
+    except ValueError:
+        raise FriError(err) from None
+    if arr.shape != shape or np.any(arr >= np.uint64(P)):
+        raise FriError(err)
+    return torch.as_tensor(arr.astype(np.int64), device=device)
+
+
+def coset_points(shift: int, log_n: int, indices, device) -> torch.Tensor:
+    """shift·ω^i for each index i, ω the order-2^log_n generator."""
+    w = bb.two_adic_generator(log_n)
+    return torch.tensor([shift * pow(w, int(i), P) % P for i in indices],
+                        dtype=torch.int64, device=device)
+
+
+def fri_verify(proof: dict, shift: int, log_n: int, config: FriConfig,
+               challenger: DuplexChallenger, open_input_batch) -> bool:
+    """Verify a FRI proof, all queries at once.
+
+    ``open_input_batch(indices, v0s, v1s)`` is called once with the opened
+    round-0 pairs of every query (a list of nq indices and two (nq, 4)
+    tensors); the caller (the STARK verifier) raises unless they match its
+    outer openings, which binds the codeword to the committed columns."""
+    dev = challenger.device
+    if proof.get("log_n") != log_n:
+        raise FriError("wrong codeword size")
+    final_len = (1 << config.log_final_poly_len) * config.blowup
+    n_rounds = 0
+    betas = []
+    shifts = [shift % P]
+    size = 1 << log_n
+    while size > final_len:
+        n_rounds += 1
+        size //= 2
+        shifts.append(shifts[-1] * shifts[-1] % P)
+    if len(proof["roots"]) != n_rounds:
+        raise FriError("wrong number of FRI rounds")
+    for root in proof["roots"]:
+        if len(root) != 8:
+            raise FriError("malformed root")
+        challenger.observe_many(root)
+        betas.append(challenger.sample_ext())
+
+    final_coeffs = [tuple(int(x) % P for x in c) for c in proof["final_coeffs"]]
+    if len(final_coeffs) != (final_len >> config.log_blowup):
+        raise FriError("wrong final polynomial length")
+    for c in final_coeffs:
+        challenger.observe_ext(c)
+
+    if not challenger.check_witness(config.proof_of_work_bits, int(proof["pow_witness"])):
+        raise FriError("proof-of-work check failed")
+
+    nq = config.num_queries
+    queries = proof["queries"]
+    if len(queries) != nq:
+        raise FriError("wrong query count")
+
+    # transcript: every query index first, in the prover's order
+    indices = []
+    for q in queries:
+        leaf_index = challenger.sample_bits(log_n - 1)
+        if int(q["index"]) != leaf_index:
+            raise FriError("query index mismatch")
+        if len(q["rounds"]) != n_rounds:
+            raise FriError("wrong per-query round count")
+        indices.append(leaf_index)
+
+    idx = list(indices)
+    expected = None  # (nq, 4) value the current round must hold at idx
+    v0_r0 = v1_r0 = None
+    for r in range(n_rounds):
+        cur_log = log_n - r
+        n_half = 1 << (cur_log - 1)
+        j = [i % n_half for i in idx]
+        leaves = field_rows([q["rounds"][r]["leaf"] for q in queries], (nq, 8),
+                            "malformed FRI leaf", dev)
+        paths = field_rows([q["rounds"][r]["path"] for q in queries], (nq, cur_log - 1, 8),
+                           "malformed FRI path", dev)
+        if not verify_openings_batch(proof["roots"][r], j, leaves, paths):
+            raise FriError(f"bad Merkle opening in round {r}")
+        v0, v1 = leaves[:, 0:4], leaves[:, 4:8]
+        if r == 0:
+            v0_r0, v1_r0 = v0, v1
+        else:
+            low = torch.tensor([i < n_half for i in idx], device=dev)[:, None]
+            if not torch.equal(torch.where(low, v0, v1), expected):
+                raise FriError(f"fold mismatch entering round {r}")
+        # fold to the next round's value at j
+        half_x_inv = bb.inv(coset_points(shifts[r], cur_log, j, dev)) * _HALF % P
+        even = ext.add(v0, v1) * _HALF % P
+        odd = ext.mul_base(ext.sub(v0, v1), half_x_inv)
+        expected = ext.add(even, ext.mul(ext.tensor(betas[r], dev), odd))
+        idx = j
+
+    # the final polynomial at the tracked points (Horner)
+    x = coset_points(shifts[n_rounds], final_len.bit_length() - 1, idx, dev)
+    value = torch.zeros((nq, ext.D), dtype=torch.int64, device=dev)
+    for c in reversed(final_coeffs):
+        value = ext.add(ext.mul_base(value, x), ext.tensor(c, dev))
+    if not torch.equal(value, expected):
+        raise FriError("final polynomial mismatch")
+
+    open_input_batch(indices, v0_r0, v1_r0)
+    return True

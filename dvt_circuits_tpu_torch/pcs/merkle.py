@@ -10,7 +10,9 @@ through ``poseidon2_permute`` — kernel K1 on the card:
     keep ``[:8]`` (one batched permutation per level).
 
 Openings read host mirrors fetched in one transfer per level, as the JAX
-tree does.
+tree does.  Verification: ``verify_opening`` walks one opening with the
+scalar permutation; ``verify_openings_batch`` walks every query's opening
+of one tree at once through ``poseidon2_permute`` on the verifier's device.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..hash.poseidon2 import DIGEST_WIDTH, RATE, WIDTH, poseidon2_permute
+from ..hash.poseidon2 import DIGEST_WIDTH, RATE, WIDTH, poseidon2_permute, s_permute
 
 
 def hash_rows(matrix: torch.Tensor) -> torch.Tensor:
@@ -85,3 +87,47 @@ class MerkleTree:
             path.append(level[idx ^ 1])
             idx >>= 1
         return row, np.asarray(path, dtype=np.uint32).reshape(-1, DIGEST_WIDTH)
+
+
+# ---------------------------------------------------------------------------
+# Verification
+# ---------------------------------------------------------------------------
+
+
+def _s_hash_row(row) -> list:
+    """Scalar leaf sponge of one row of standard-form ints."""
+    state = [0] * WIDTH
+    for off in range(0, len(row), RATE):
+        chunk = [int(v) for v in row[off : off + RATE]]
+        state[:RATE] = chunk + [0] * (RATE - len(chunk))
+        state = s_permute(state)
+    return state[:DIGEST_WIDTH]
+
+
+def verify_opening(root, index: int, row, path) -> bool:
+    """Scalar check that ``row`` is leaf ``index`` under ``root``."""
+    digest = _s_hash_row(row)
+    idx = index
+    for sib in path:
+        sib = [int(v) for v in sib]
+        pair = sib + digest if idx & 1 else digest + sib
+        digest = s_permute(pair)[:DIGEST_WIDTH]
+        idx >>= 1
+    return digest == [int(v) for v in root]
+
+
+def verify_openings_batch(root, indices, rows: torch.Tensor, paths: torch.Tensor) -> bool:
+    """Batched check of openings of one tree: ``rows`` (nq, w) and
+    ``paths`` (nq, depth, 8) int64 tensors, ``indices`` nq leaf indices.
+    Hashes every row and climbs every path level by level on the tensors'
+    device."""
+    digests = hash_rows(rows)
+    idx = torch.as_tensor(list(indices), dtype=torch.int64, device=rows.device)
+    for level in range(paths.shape[1]):
+        sib = paths[:, level]
+        odd = (idx & 1).bool()[:, None]
+        pair = torch.stack([torch.where(odd, sib, digests), torch.where(odd, digests, sib)], dim=1)
+        digests = compress_pairs(pair)
+        idx = idx >> 1
+    want = torch.as_tensor([int(v) for v in root], dtype=torch.int64, device=rows.device)
+    return want.shape == (DIGEST_WIDTH,) and bool((digests == want).all())

@@ -1,7 +1,10 @@
 from .pipeline import (
     ProveError,
+    VerifyError,
+    VerifyResult,
     execute_circuit,
     load_proof,
     prove_circuit,
     save_proof,
+    verify_proof,
 )

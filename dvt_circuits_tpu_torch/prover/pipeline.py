@@ -1,19 +1,21 @@
-"""Proof pipeline: witness execution → public-values binding STARK.
+"""Proof pipeline: witness execution → public-values binding STARK, and
+its verifier.
 
-Port of ``dvt_circuits_tpu/prover/pipeline.py`` (the prover side):
-``execute_circuit`` runs the witness program on the host; ``prove_circuit``
-assembles the tables exactly as the JAX package does (stream AIR header and
-words, SHA-256 relation dedup, cap, sort and power-of-two padding) and
-proves them on one transcript with the port's ``prove_tables``.  The
-container format is the JAX package's (``PROOF_FORMAT`` v7), so the JAX
-verifier reads the port's containers.
+Port of ``dvt_circuits_tpu/prover/pipeline.py``.  ``execute_circuit`` runs
+the witness program on the host; ``prove_circuit`` assembles the tables
+exactly as the JAX package does (stream AIR header and words, SHA-256
+relation dedup, cap, sort and power-of-two padding, one G1 scalar-mul
+table per distinct curve relation through ``curve_glue.build_gadget``)
+and proves them on one transcript with the port's ``prove_tables``.
+``verify_proof`` replays that transcript, verifies every table and re-runs
+the SHA-256 and curve bindings.  The container format is the JAX
+package's (``PROOF_FORMAT`` v7): each package verifies the other's
+containers.
 
-This slice carries the Poseidon2 stream table and the SHA-256 table.  The
-G1 curve table and the ChaCha20 table are not ported yet: a witness that
-records a G1 relation (unless ``DVT_G1=0`` opts out, counting the
-relations in ``g1_omitted`` as the JAX package does) or a ChaCha20 decrypt
-raises ``ProveError`` rather than emit a container that differs from the
-JAX one.
+Not ported yet: the ChaCha20 table (a witness that records a ChaCha20
+decrypt raises ``ProveError``; a ``chacha20`` gadget raises
+``VerifyError``) and the legacy wide ``g1`` gadget kind, which no v7
+prover emits (``VerifyError``).
 """
 
 from __future__ import annotations
@@ -21,15 +23,21 @@ from __future__ import annotations
 import hashlib
 import os
 import time
+from typing import Optional
 
 from ..circuits.guest_api import GuestResult, run_guest
 from ..circuits.registry import CIRCUITS, get_circuit
 from ..dkg.hash_recorder import chacha_recording, g1_recording, recording
+from ..pcs.challenger import DuplexChallenger
 from ..stark.config import DEFAULT_CONFIG, StarkConfig
 from ..stark.fused import prove_tables
-from ..stark.poseidon2_air import Poseidon2StreamAir, stream_to_words
-from ..stark.sha256_air import Sha256Air, pad_message
+from ..stark.g1mul_air import G1MulAir
+from ..stark.poseidon2_air import Poseidon2StreamAir, hash_stream_words, stream_to_words
+from ..stark.sha256_air import Sha256Air, digest_from_publics, pad_message
+from ..stark.verifier import StarkError
+from ..stark.verifier import verify as stark_verify
 from ..utils import cbor
+from . import curve_glue
 
 PROOF_FORMAT = "dvt-circuits-tpu/stark-proof/v7"
 
@@ -48,6 +56,43 @@ _CIRCUIT_IDS = {name: i + 1 for i, name in enumerate(sorted(CIRCUITS))}
 
 class ProveError(RuntimeError):
     pass
+
+
+class VerifyError(RuntimeError):
+    pass
+
+
+class VerifyResult:
+    """Outcome of ``verify_proof``: truthy on success, with the proof's
+    binding level (``dvt_circuits_tpu/prover/pipeline.py:VerifyResult``):
+    ``"curve-bound"`` (auth) or ``"curve-bound-noauth"`` when every recorded
+    curve relation is proven in-circuit and anchored, ``"hash-bound"`` when
+    none is carried; a ``+sig`` suffix when the verifier re-ran BLS/ECDSA
+    signature checks itself (``sig_checks`` counts them)."""
+
+    def __init__(
+        self,
+        circuit: str,
+        binding: str,
+        g1_relations: int,
+        g1_omitted: int,
+        sig_checks: int = 0,
+    ):
+        self.circuit = circuit
+        self.binding = binding
+        self.g1_relations = g1_relations
+        self.g1_omitted = g1_omitted
+        self.sig_checks = sig_checks
+
+    def __bool__(self) -> bool:
+        return True
+
+    def __repr__(self) -> str:
+        return (
+            f"VerifyResult(circuit={self.circuit!r}, binding={self.binding!r}, "
+            f"g1_relations={self.g1_relations}, g1_omitted={self.g1_omitted}, "
+            f"sig_checks={self.sig_checks})"
+        )
 
 
 def execute_circuit(
@@ -111,15 +156,6 @@ def prove_circuit(
         raise ProveError(
             f"witness execution failed (guest panic): {result.panic_message}"
         )
-    g1_omitted = 0
-    if recorded_g1:
-        if os.environ.get("DVT_G1", "1") != "0":
-            raise ProveError(
-                f"the witness recorded {len(recorded_g1)} G1 curve relation(s); the "
-                "G1 scalar-mul table is not ported to the PyTorch prover yet "
-                "(set DVT_G1=0 to omit the relations, counted in g1_omitted)"
-            )
-        g1_omitted = len(recorded_g1)
     if recorded_chacha:
         raise ProveError(
             "the witness recorded a ChaCha20 decrypt; the ChaCha20 table is not "
@@ -146,24 +182,34 @@ def prove_circuit(
     sha_relations = kept
 
     # ONE SHA-256 table carrying every recorded relation: messages sorted by
-    # block count (stable), padded with 1-block dummies to a power of two
+    # block count (stable), padded with 1-block dummies to a power of two.
+    # The originals and digests follow the same order: the G1 gadgets name
+    # table entries by index (curve_glue.build_gadget).
     gadgets = []
     gadget_entry = None
+    sha_digests: list = []
+    sha_originals: list = []
     if sha_relations:
         padded_msgs = []
         offsets = []
         for preimage, digest in sha_relations:
             padded_msgs.append(pad_message(preimage))
+            sha_originals.append(preimage)
+            sha_digests.append(digest)
             # guests commit digests as hex text; bind where the digest appears
             off = result.public_values.find(digest.hex().encode("ascii"))
             offsets.append(off if off >= 0 else None)
         order = sorted(range(len(padded_msgs)), key=lambda i: -len(padded_msgs[i]))
         padded_msgs = [padded_msgs[i] for i in order]
         offsets = [offsets[i] for i in order]
+        sha_digests = [sha_digests[i] for i in order]
+        sha_originals = [sha_originals[i] for i in order]
         target = 1 << (len(padded_msgs) - 1).bit_length()
         while len(padded_msgs) < target:
             padded_msgs.append(pad_message(b""))
             offsets.append(None)
+            sha_digests.append(hashlib.sha256(b"").digest())
+            sha_originals.append(b"")
         block_counts = tuple(len(p) // 64 for p in padded_msgs)
         gadgets.append(
             {
@@ -175,6 +221,30 @@ def prove_circuit(
         )
         g_air = Sha256Air(block_counts)
         gadget_entry = (g_air, *g_air.generate_trace(padded_msgs))
+
+    # G1 scalar-mul tables, one per distinct recorded curve relation.  A
+    # relation the chip cannot carry is counted in the absorbed
+    # ``g1_omitted``, never dropped silently; DVT_G1=0 omits them all.
+    g1_entries: list = []
+    g1_omitted = 0
+    if recorded_g1 and os.environ.get("DVT_G1", "1") == "0":
+        g1_omitted = len(recorded_g1)
+        recorded_g1 = []
+    seen_g1: set = set()
+    for rel in recorded_g1:
+        key = repr(sorted(rel.items(), key=lambda kv: kv[0]))
+        if key in seen_g1:
+            continue
+        seen_g1.add(key)
+        try:
+            gadget, entry = curve_glue.build_gadget(
+                rel, sha_originals, sha_digests, result.public_values, auth
+            )
+        except (curve_glue.Unprovable, curve_glue.GlueError):
+            g1_omitted += 1
+            continue
+        gadgets.append(gadget)
+        g1_entries.append(entry)
 
     # the absorbed words commit to the gadget structure (see _stream_words)
     words = _stream_words(
@@ -191,6 +261,7 @@ def prove_circuit(
     entries = [(air, trace, publics)]
     if gadget_entry is not None:
         entries.append(gadget_entry)
+    entries.extend(g1_entries)
     proofs = prove_tables(entries, config, device)
     for g, p in zip(gadgets, proofs[1:]):
         g["proof"] = p
@@ -217,6 +288,170 @@ def prove_circuit(
         },
         "timing": {"witness_ms": int(witness_time * 1000), "prove_ms": int(prove_time * 1000)},
     }
+
+
+def verify_proof(
+    container: dict,
+    circuit_name: Optional[str] = None,
+    strict: bool = False,
+    device="cuda",
+) -> VerifyResult:
+    """Verify a proof container on ``device``; raises VerifyError on failure.
+
+    Returns a truthy ``VerifyResult`` with the proof's binding level.  With
+    ``strict=True``, a container whose curve relations were omitted
+    (``g1_omitted != 0``), or a share-circuit container without any curve
+    table, is rejected instead of flagged."""
+    if container.get("format") != PROOF_FORMAT:
+        raise VerifyError(f"unknown proof format {container.get('format')!r}")
+    name = container.get("circuit")
+    if name not in CIRCUITS:
+        raise VerifyError(f"unknown circuit {name!r}")
+    if circuit_name is not None and name != circuit_name:
+        raise VerifyError(f"proof is for circuit {name!r}, expected {circuit_name!r}")
+    auth = bool(container.get("auth"))
+    setup = container.get("setup", "secp-commitment")
+    if setup not in ("secp-commitment", "bls-commitment"):
+        raise VerifyError(f"unknown setup {setup!r}")
+    try:
+        stream = bytes.fromhex(container["public_values"])
+    except (KeyError, ValueError) as e:
+        raise VerifyError(f"malformed public values: {e}") from None
+
+    cfg = container.get("config", {})
+    config = StarkConfig(
+        log_blowup=int(cfg.get("log_blowup", DEFAULT_CONFIG.log_blowup)),
+        num_queries=int(cfg.get("num_queries", DEFAULT_CONFIG.num_queries)),
+        proof_of_work_bits=int(cfg.get("proof_of_work_bits", DEFAULT_CONFIG.proof_of_work_bits)),
+        log_final_poly_len=int(cfg.get("log_final_poly_len", DEFAULT_CONFIG.log_final_poly_len)),
+        shift=int(cfg.get("shift", DEFAULT_CONFIG.shift)),
+    )
+    if config.num_queries < 12 or config.log_blowup < 1:
+        raise VerifyError("proof config below minimum security floor")
+
+    gadgets_list = container.get("gadgets", [])
+    try:
+        # the absorbed words commit to the gadget structure, so a stripped
+        # or altered gadget set desynchronizes the stream digest below
+        words = _stream_words(
+            name,
+            auth,
+            setup,
+            stream,
+            gadgets_list,
+            (
+                int(container.get("gadgets_omitted", 0)),
+                int(container.get("chacha_omitted", 0)),
+                int(container.get("g1_omitted", 0)),
+            ),
+        )
+    except (KeyError, TypeError, ValueError) as e:
+        raise VerifyError(f"malformed gadget descriptor: {e}") from None
+    num_chunks = max(1, -(-len(words) // 8))
+    num_chunks = 1 << (num_chunks - 1).bit_length()
+    air = Poseidon2StreamAir(num_chunks)
+    padded = [w % 2013265921 for w in words] + [0] * (8 * num_chunks - len(words))
+    publics = padded + hash_stream_words(padded)
+
+    challenger = DuplexChallenger(device)
+    g1_relations = 0
+    sig_checks = 0
+    try:
+        stark_verify(air, container["stark"], publics, config, challenger)
+        sha_ctx = None
+        for entry in gadgets_list:
+            kind = entry.get("kind")
+            if kind == "sha256":
+                sha_ctx = _verify_sha_gadget(entry, stream, config, challenger)
+            elif kind == "g1mul":
+                sig_checks += _verify_g1mul_gadget(
+                    entry, stream, sha_ctx, config, challenger, auth, name
+                )
+                g1_relations += 1
+            elif kind in ("chacha20", "g1"):
+                raise VerifyError(
+                    f"the {kind!r} gadget's table is not ported to the PyTorch "
+                    "verifier yet; verify this container with the JAX package"
+                )
+            else:
+                raise VerifyError(f"unknown gadget kind {kind!r}")
+    except StarkError as e:
+        raise VerifyError(f"STARK verification failed: {e}") from None
+    except (KeyError, TypeError, ValueError) as e:
+        raise VerifyError(f"malformed proof: {e}") from None
+
+    g1_omitted = int(container.get("g1_omitted", 0))
+    if g1_relations and g1_omitted == 0:
+        binding = "curve-bound" if auth else "curve-bound-noauth"
+        if sig_checks:
+            binding += "+sig"
+    else:
+        binding = "hash-bound"
+    if strict:
+        if g1_omitted:
+            raise VerifyError(f"strict: {g1_omitted} curve relation(s) omitted from the proof")
+        if name in ("bad-share", "finalization", "bad-partial-key") and g1_relations == 0:
+            # every accepting run of these circuits reaches its curve check;
+            # strict callers asked for in-circuit curve evidence
+            raise VerifyError("strict: proof carries no curve-relation table")
+    return VerifyResult(name, binding, g1_relations, g1_omitted, sig_checks)
+
+
+def _verify_sha_gadget(entry: dict, stream: bytes, config: StarkConfig,
+                       challenger: DuplexChallenger):
+    """Verify the multi-message SHA-256 table and its stream bindings
+    (each digest with a stream offset must appear there as hex text).
+    Returns (air, publics) for the gadgets that bind to its digests."""
+    block_counts = [int(v) for v in entry["block_counts"]]
+    offsets = entry.get("stream_offsets", [])
+    if not 1 <= len(block_counts) <= MAX_SHA_GADGETS or len(offsets) != len(block_counts):
+        raise VerifyError("gadget message count out of range")
+    if any(not 1 <= b <= 64 for b in block_counts) or sum(block_counts) > MAX_SHA_BLOCKS:
+        raise VerifyError("gadget block count out of range")
+    g_air = Sha256Air(tuple(block_counts))
+    g_publics = [int(v) for v in entry["proof"]["public_values"]]
+    try:
+        g_air.check_publics(g_publics)
+    except ValueError as e:
+        raise VerifyError(f"gadget publics: {e}") from None
+    stark_verify(g_air, entry["proof"], g_publics, config, challenger)
+    for mi, off in enumerate(offsets):
+        if off is None:
+            continue
+        off = int(off)
+        digest_hex = digest_from_publics(g_air, g_publics, mi).hex().encode("ascii")
+        if not 0 <= off <= len(stream) - 64 or stream[off : off + 64] != digest_hex:
+            raise VerifyError("gadget digest not bound to the committed stream")
+    return g_air, g_publics
+
+
+def _verify_g1mul_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfig,
+                         challenger: DuplexChallenger, auth: bool, circuit_name: str) -> int:
+    """Verify a G1 scalar-mul table: its STARK, then ``curve_glue``
+    re-derives the DKG statement on the host and checks every chip public
+    against it.  Returns the signature checks re-run from committed data."""
+    chain_bits = tuple(int(v) for v in entry.get("block_counts", []))
+    if not chain_bits or len(chain_bits) > 64:
+        raise VerifyError("g1mul chain count out of range")
+    if any(not 8 <= b <= 256 or b % 8 for b in chain_bits):
+        raise VerifyError("g1mul chain width out of range")
+    if sum(b * 7 + 2 for b in chain_bits) > curve_glue.MAX_CHAIN_ROWS:
+        raise VerifyError("g1mul table too tall")
+    air = G1MulAir(chain_bits)
+    publics = [int(v) for v in entry["proof"]["public_values"]]
+    try:
+        air.check_publics(publics)
+    except ValueError as e:
+        raise VerifyError(f"g1mul publics: {e}") from None
+    stark_verify(air, entry["proof"], publics, config, challenger)
+    try:
+        _, sig_checks = curve_glue.verify_gadget_glue(
+            air, publics, [int(v) for v in entry.get("extras", [])], stream, sha_ctx, auth,
+            circuit_name,
+        )
+    except curve_glue.GlueError as e:
+        raise VerifyError(f"g1mul binding: {e}") from None
+    return sig_checks
 
 
 def save_proof(container: dict, path: str) -> None:

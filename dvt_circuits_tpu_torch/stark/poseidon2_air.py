@@ -236,3 +236,10 @@ class Poseidon2StreamAir(Air):
 def stream_to_words(data: bytes) -> list:
     """Bytes → BabyBear words, 2 bytes per word big-endian (always < p)."""
     return [int.from_bytes(data[i : i + 2], "big") for i in range(0, len(data), 2)]
+
+
+def hash_stream_words(words) -> list:
+    """Host mirror of the AIR's sponge: absorb rate-8 chunks, return digest."""
+    from ..pcs.merkle import _s_hash_row
+
+    return _s_hash_row([int(w) % bb.P for w in words])

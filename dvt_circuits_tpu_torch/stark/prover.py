@@ -208,6 +208,15 @@ def openings_body(air: Air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n: int,
     return out
 
 
+def preprocessed_commitment(air: Air, log_n: int, config: StarkConfig, device):
+    """Verifying-key material: the Merkle root of the AIR's preprocessed
+    columns' LDE at 2^log_n rows (None without preprocessed columns)."""
+    if not air.preprocessed_width:
+        return None
+    pre = np.asarray(air.preprocessed_trace(1 << log_n), dtype=np.int64)
+    return merkle_root(lde_body(torch.as_tensor(pre, device=device), config))
+
+
 def opened_digest_std(opened: dict, device) -> list:
     """Merkle digest (8 words) of a table's opened values, rows in the
     γ-power order p@ζ, p@gζ, t@ζ, t@gζ, q@ζ, zero-padded to a power of two

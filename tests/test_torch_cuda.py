@@ -8,9 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from dvt_circuits_tpu_torch import probe_vpu
 from dvt_circuits_tpu_torch.hash import keccak
 from dvt_circuits_tpu_torch.hash import poseidon2 as p2
-from dvt_circuits_tpu_torch.stark import TEST_CONFIG, prove_tables
+from dvt_circuits_tpu_torch.stark import TEST_CONFIG, prove_tables, verify
 from dvt_circuits_tpu_torch.stark.airs import FibonacciAir
 
 pytestmark = pytest.mark.cuda
@@ -51,3 +52,24 @@ def test_proof_on_card_equals_cpu_proof(card):
     assert prove_tables(entry, TEST_CONFIG, device=card) == prove_tables(
         entry, TEST_CONFIG, device="cpu"
     )
+
+
+@pytest.mark.parametrize("n", [1, 4096])
+def test_mulchain_kernel_matches_plain(card, n):
+    x = np.random.default_rng(n).integers(0, 1 << 32, (19, n), dtype=np.int64)
+    x[0], x[1], x[2] = 0, 1, (1 << 32) - 1
+    t = torch.as_tensor(x, device=card)
+    before = probe_vpu.mulchain.launches
+    got = probe_vpu.mulchain(t)
+    assert probe_vpu.mulchain.launches == before + 1
+    assert torch.equal(got, probe_vpu.mulchain_plain(t))
+
+
+def test_verifier_on_card_accepts_card_proof(card):
+    trace = FibonacciAir.generate_trace(64)
+    publics = FibonacciAir.public_values(trace)
+    proof, = prove_tables([(FibonacciAir(), trace, publics)], TEST_CONFIG, device=card)
+    before = p2.poseidon2_permute.launches
+    assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device=card)
+    assert p2.poseidon2_permute.launches > before
+    assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device="cpu")

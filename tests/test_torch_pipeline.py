@@ -1,9 +1,16 @@
-"""Port parity for the whole slice: ``prove_circuit("bad-share")`` on the
-CPU equals the JAX package's container (numpy host prover) field by field
-except ``timing``, and the JAX verifier accepts it; the CLI ``prove``
-matches the JAX CLI; the port imports no jax and nothing of the JAX
-package."""
+"""Port parity for the whole slice: ``prove_circuit`` on the CPU equals the
+JAX package's container (numpy host prover) field by field except
+``timing``, for the pre-curve bad-share fault, the curve-fault bad-share
+(its G1 scalar-mul table) and bad-partial-key, and the JAX verifier
+accepts each; the port's verifier accepts the JAX containers and its own
+with the same result and rejects the tampered ones that the JAX verifier
+rejects; the CLI ``prove`` matches the JAX CLI; the port imports no jax
+and nothing of the JAX package.
 
+The curve containers are proven once per module (a fixture): each takes
+about a minute on one CPU thread."""
+
+import copy
 import hashlib
 import json
 import os
@@ -13,11 +20,13 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from dvt_circuits_tpu import cli as jax_cli
 from dvt_circuits_tpu.prover import pipeline as jax_pipeline
 from dvt_circuits_tpu.stark.config import TEST_CONFIG as JAX_TEST_CONFIG
 from dvt_circuits_tpu_torch import cli
+from dvt_circuits_tpu_torch.dkg import hash_recorder
 from dvt_circuits_tpu_torch.dkg.keys import BlsDkgWithSecp256kCommitment
 from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
 from dvt_circuits_tpu_torch.dkg.types import SHA256Raw
@@ -46,11 +55,15 @@ def _curve_fault():
     return DkgCommittee(3, 2).shared_data_bad_secret(0, 1, True)
 
 
-def _jax_data(data):
+def _bad_partial_key():
+    return DkgCommittee(3, 2).bad_partial_key_data(1, True)
+
+
+def _jax_data(data, circuit="bad-share"):
     """The same scenario as the JAX package's typed input (via its JSON)."""
     from dvt_circuits_tpu.circuits.registry import get_circuit
 
-    spec = get_circuit("bad-share")
+    spec = get_circuit(circuit)
     return spec.data_type.from_json(
         json.loads(json.dumps(data.to_json(True))), spec.setup.layout, True
     )
@@ -80,10 +93,100 @@ def test_container_equals_jax_and_verifies(scenario, g1_off, monkeypatch):
     assert pipeline.container_digest(ours) == pipeline.container_digest(theirs)
 
 
-def test_recorded_g1_relation_raises_without_opt_out(monkeypatch):
-    monkeypatch.delenv("DVT_G1", raising=False)
-    with pytest.raises(pipeline.ProveError, match="G1"):
-        pipeline.prove_circuit("bad-share", _curve_fault(), True, TEST_CONFIG, device="cpu")
+#: circuit, scenario, chain widths of its G1 table, signature checks re-run
+_CURVE_CASES = {
+    "curve-fault": ("bad-share", _curve_fault, [256, 32], 1),
+    "bad-partial-key": ("bad-partial-key", _bad_partial_key, [32], 2),
+}
+
+
+@pytest.fixture(scope="module")
+def curve_containers():
+    """(port, JAX) containers of each curve case, each proven once.  Torch
+    runs on one thread here: the suite runs several test processes at once,
+    and torch's spinning worker threads slow every process on a shared CPU."""
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("DVT_PROVER", "host")
+            mp.delenv("DVT_G1", raising=False)
+            for case, (circuit, scenario, _, _) in _CURVE_CASES.items():
+                data = scenario()
+                out[case] = (
+                    pipeline.prove_circuit(circuit, data, True, TEST_CONFIG, device="cpu"),
+                    jax_pipeline.prove_circuit(circuit, _jax_data(data, circuit), True,
+                                               JAX_TEST_CONFIG),
+                )
+        yield out
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", sorted(_CURVE_CASES))
+def test_curve_container_equals_jax_and_verifies(curve_containers, case):
+    circuit, _, chain_bits, sig_checks = _CURVE_CASES[case]
+    ours, theirs = curve_containers[case]
+    assert ours.keys() == theirs.keys()
+    for key in theirs:
+        if key != "timing":
+            assert ours[key] == theirs[key], key
+    assert [g["kind"] for g in ours["gadgets"]] == ["sha256", "g1mul"]
+    assert ours["gadgets"][1]["block_counts"] == chain_bits
+    assert ours["g1_omitted"] == 0
+    res = jax_pipeline.verify_proof(ours, circuit, strict=True)
+    assert (res.binding, res.g1_relations, res.sig_checks) == ("curve-bound+sig", 1, sig_checks)
+
+
+def _fields(res):
+    return (res.circuit, res.binding, res.g1_relations, res.g1_omitted, res.sig_checks)
+
+
+@pytest.mark.parametrize("case", sorted(_CURVE_CASES))
+def test_port_verifier_accepts_jax_and_own_containers(curve_containers, case):
+    circuit, _, _, sig_checks = _CURVE_CASES[case]
+    ours, theirs = curve_containers[case]
+    own = pipeline.verify_proof(ours, circuit, strict=True, device="cpu")
+    jax_made = pipeline.verify_proof(theirs, circuit, strict=True, device="cpu")
+    reference = jax_pipeline.verify_proof(theirs, circuit, strict=True)
+    assert _fields(own) == _fields(jax_made) == _fields(reference)
+    assert _fields(own) == (circuit, "curve-bound+sig", 1, 0, sig_checks)
+
+
+def _tamper_public(container):
+    pv = next(g for g in container["gadgets"] if g["kind"] == "g1mul")["proof"]["public_values"]
+    pv[0] = (pv[0] + 1) % 256  # first secret byte: the seed-preimage binding breaks
+
+
+def _strip_g1mul(container):
+    container["gadgets"] = [g for g in container["gadgets"] if g["kind"] != "g1mul"]
+
+
+@pytest.mark.parametrize("tamper", [_tamper_public, _strip_g1mul],
+                         ids=["tampered-g1mul-public", "stripped-g1mul-gadget"])
+def test_tampered_curve_container_rejected_by_both(curve_containers, tamper):
+    bad = copy.deepcopy(curve_containers["curve-fault"][0])
+    tamper(bad)
+    with pytest.raises(pipeline.VerifyError):
+        pipeline.verify_proof(bad, device="cpu")
+    with pytest.raises(jax_pipeline.VerifyError):
+        jax_pipeline.verify_proof(bad)
+
+
+def test_recorded_chacha_decrypt_raises(monkeypatch):
+    """The ChaCha20 table is not ported: a witness that records a decrypt
+    cannot be proven by the port."""
+    execute = pipeline.execute_circuit
+
+    def execute_with_decrypt(*args, **kwargs):
+        result = execute(*args, **kwargs)
+        hash_recorder.record_chacha(bytes(32), bytes(12), 0, b"ciphertext")
+        return result
+
+    monkeypatch.setattr(pipeline, "execute_circuit", execute_with_decrypt)
+    with pytest.raises(pipeline.ProveError, match="ChaCha20"):
+        pipeline.prove_circuit("bad-share", _pre_curve_fault(), True, TEST_CONFIG, device="cpu")
 
 
 def test_cli_prove_matches_jax_cli(tmp_path, monkeypatch, capsys):
