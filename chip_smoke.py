@@ -9,11 +9,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every kernel from ``dvt_circuits_tpu_torch/csrc`` (one nvcc per
-     source, in parallel); count their integer instructions in the SASS
-     (K3 must hold at least 512 IMAD per element: its chain is not folded);
-  3. K1 (Poseidon2): kernel vs plain PyTorch on 2^20 random states plus
-     all-0 / all-(p−1) rows and at the prover's shapes, bit-equal; 16 rows
-     vs the scalar ``s_permute``; CUDA-event timings;
+     source, in parallel); print K1's register report and each K1 kernel's
+     static integer instructions in the SASS (a diagnostic of the design); count
+     K2's and K3's (K3 must hold at least 512 IMAD per element: its chain
+     is not folded);
+  3. K1a (the Poseidon2 permutation): kernel vs plain PyTorch on 2^20
+     random states plus all-0 / all-(p−1) rows and at the prover's shapes,
+     bit-equal, with 1 and 4 lanes per state; 16 rows vs the scalar
+     ``s_permute``; CUDA-event timings;
+  3b. K1b (the leaf sponge, one launch per tree) at 2^14 x 4314, 2^12 x 336
+     and 2^14 x 32, also on a strided view; K1c (the Merkle levels) at 2^14
+     leaves; K1d (the proof-of-work search) on 2^16 candidates at pending
+     positions 0, 3 and 7: each bit-equal to its plain version, then timed
+     with 1 and 4 lanes per state against the plain version and the bound;
   4. K2 (Keccak-f[1600]): kernel vs plain on 2^16 states, bit-equal;
      Keccak-256 / SHA3-256 known digests; timings;
   5. K3 (the multiply-add probe): kernel vs plain on (16, 2^18) random
@@ -42,15 +50,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ``{"ok": true, "device": {...}}``.
 
 Every path runs with the launch counts set to 0 just before it and read
-just after; a kernel that a path should launch and did not fails the run.
-Randomness comes from numpy with fixed seeds.  Bounds: bytes each kernel
-must move over 3.35 TB/s, and its integer instructions (counted in the
-compiled SASS, ``kernel_work``) over the int32 instruction rates (see
-``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the larger of the two.
+just after; a kernel that a path should launch and did not fails the run,
+and so does a path whose leaf-sponge launches differ from the Merkle
+trees it committed plus its batched opening checks (one launch each).
+Randomness comes from numpy with fixed seeds.  Bounds:
+bytes each kernel must move over 3.35 TB/s, and its integer work over the
+int32 instruction rates (see ``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the
+larger of the two.  K1's work is the permutation's, counted from its
+definition (``P2_IMAD``, ``P2_INSTR``) times the permutations of the call,
+the same for every design; K2's and K3's come from their SASS
+(``kernel_work``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import re
@@ -76,7 +90,21 @@ _INT32_OPS_PER_S = 67e12 / 2
 #: nothing but IMAD, measures 0.46 of _INT32_OPS_PER_S on the H100
 _IMAD_PER_S = _INT32_OPS_PER_S / 2
 
-#: bytes each permutation must move: K1 16 int64 words in and out, K2 25;
+#: Poseidon2 work per permutation as the algorithm defines it
+#: (hash/poseidon2.py), whatever the design: 564 S-box products (8 full
+#: rounds x 16 words x 4, 13 partial rounds x 4), each a Montgomery product
+#: at 3 IMAD on the FMA pipe; 208 products by the internal diagonal 1..16
+#: (13 rounds x 16), one instruction each; 1,084 additions, one instruction
+#: each: 9 external layers x 60 (M4's chain of 8 with its doublings folded
+#: into shift-adds, x 4 groups, 12 for the column sums, 16 to add them), 13
+#: internal layers x 31 (15 for the row sum, 16 to add it) and 141 round
+#: constants (8 x 16 + 13)
+P2_SBOX_PRODUCTS = 8 * 16 * 4 + 13 * 4
+P2_DIAG_PRODUCTS = 13 * 16
+P2_ADDS = 9 * (4 * 8 + 12 + 16) + 13 * (15 + 16) + 8 * 16 + 13
+P2_IMAD = 3 * P2_SBOX_PRODUCTS
+P2_INSTR = P2_IMAD + P2_DIAG_PRODUCTS + P2_ADDS
+#: bytes each permutation must move: K1a 16 int64 words in and out, K2 25;
 #: K3 one int64 in and out per element
 K1_BYTES_PER_PERM = 2 * 16 * 8
 K2_BYTES_PER_PERM = 2 * 25 * 8
@@ -117,40 +145,56 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _sass_opcodes(lib) -> dict:
-    """Opcode counts (base names) of a built kernel library, from
-    ``cuobjdump -sass``."""
+def _sass_functions(lib) -> dict:
+    """Opcode counts (base names) of each kernel function of a built
+    library, from ``cuobjdump -sass``."""
     from dvt_circuits_tpu_torch import kernels
 
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    counts: dict = {}
-    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass):
-        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-    return counts
+    funcs: dict = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        counts = funcs.setdefault(name.strip(), {})
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return funcs
+
+
+def _sass_opcodes(lib) -> dict:
+    """Opcode counts summed over every kernel function of a library."""
+    total: dict = {}
+    for counts in _sass_functions(lib).values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _ints(ops) -> int:
+    return sum(v for k, v in ops.items() if k in _INT_OPCODES)
 
 
 def kernel_work(libs: dict) -> dict:
-    """Integer instructions per permutation or element, as (all, IMAD),
-    from the compiled SASS: K1 and K3 are straight-line code (one thread
-    per state or element), so their static counts are their work; K2 loops
-    over 24 rounds, so its work is 24 × the LOP3 and SHF of the round body
-    (its only logic instructions)."""
-    k1 = _sass_opcodes(libs["poseidon2"])
+    """K2's and K3's integer instructions per permutation or element, as
+    (all, IMAD), from the compiled SASS: K3 is straight-line code (one
+    thread per element), so its static count is its work; K2 loops over 24
+    rounds, so its work is 24 × the LOP3 and SHF of the round body (its
+    only logic instructions).  K1's bound does not come from here (see
+    ``P2_INSTR``): its kernels' static counts are printed as a diagnostic of
+    the design."""
+    for name, ops in sorted(_sass_functions(libs["poseidon2"]).items()):
+        kernel = re.search(r"(\w+_kernel)ILi(\d)E", name)
+        label = f"{kernel.group(1)}<lanes={kernel.group(2)}>" if kernel else name
+        _log(f"K1 SASS {label}: {sum(ops.values())} instructions, {_ints(ops)} integer, "
+             f"{ops.get('IMAD', 0)} IMAD (static count: one full and one partial round body)")
     k2 = _sass_opcodes(libs["keccak"])
     k3 = _sass_opcodes(libs["mulchain"])
-
-    def ints(ops):
-        return sum(v for k, v in ops.items() if k in _INT_OPCODES)
-
     work = {
-        "poseidon2_permute": (ints(k1), k1.get("IMAD", 0)),
         "keccak_f1600": (24 * (k2.get("LOP3", 0) + k2.get("SHF", 0)), 0),
-        "mulchain": (ints(k3), k3.get("IMAD", 0)),
+        "mulchain": (_ints(k3), k3.get("IMAD", 0)),
     }
-    _log(f"SASS integer instructions (all, IMAD) per permutation or element: {work} "
-         f"(K1 opcodes {dict(sorted(k1.items(), key=lambda kv: -kv[1])[:6])})")
+    _log(f"SASS integer instructions (all, IMAD) per permutation or element: {work}")
     if min(total for total, _ in work.values()) == 0:
         raise AssertionError("no integer instructions found in the kernels' SASS")
     from dvt_circuits_tpu_torch.probe_vpu import CHAIN
@@ -161,13 +205,20 @@ def kernel_work(libs: dict) -> dict:
     return work
 
 
-def _bound_ms(n: int, work, bytes_per: int):
-    """Least time for n items: bytes over the memory rate, or integer
-    instructions over the issue rate, or IMAD over the FMA pipe's rate."""
+def _bound_ms(n: int, work, bytes_moved: int):
+    """Least time for n items (permutations, elements) of ``work`` = (all
+    integer instructions, IMAD) each that must move ``bytes_moved`` bytes:
+    the bytes over the memory rate, or the instructions over the issue
+    rate, or IMAD over the FMA pipe's rate; the larger."""
     total, imad = work
     t_ops = n * max(total / _INT32_OPS_PER_S, imad / _IMAD_PER_S)
-    t_bytes = n * bytes_per / _BYTES_PER_S
+    t_bytes = bytes_moved / _BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound_ms(perms: int, bytes_moved: int):
+    """K1's bound: ``perms`` permutations of the algorithm's own work."""
+    return _bound_ms(perms, (P2_INSTR, P2_IMAD), bytes_moved)
 
 
 def _max_abs_err_u64(a, b) -> int:
@@ -180,51 +231,177 @@ def _max_abs_err_u64(a, b) -> int:
     return err
 
 
-def phase_poseidon2(p2, work):
-    """K1 vs its plain version; returns the kernel record (launches filled later)."""
+def _k1_record(name: str, shape, err: int, ms: float, plain_ms: float, bound) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "dvt_circuits_tpu_torch/csrc/poseidon2.cu",
+        "replaces": "dvt_circuits_tpu/hash/poseidon2_pallas.py:71",
+        "shape": list(shape),
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+    }
+
+
+#: lanes per state of K1's two layouts: one thread per state, or the state
+#: split over 4 lanes (one M4 group each)
+_LANES = (1, 4)
+
+
+@contextlib.contextmanager
+def _lanes_forced(p2, lanes: int):
+    """Every K1 entry point launches with ``lanes`` lanes per state while
+    active, instead of the layout its wrapper picks from the batch size:
+    to check and time both layouts at one shape."""
+    saved = p2._lanes, p2._LEVEL_LANES
+    p2._lanes, p2._LEVEL_LANES = (lambda states: lanes), lanes
+    try:
+        yield
+    finally:
+        p2._lanes, p2._LEVEL_LANES = saved
+
+
+def _k1_times(p2, what: str, fn, reps: int, plain_fn, plain_reps: int, bound, chosen: int):
+    """Time ``fn()`` with 1 and 4 lanes per state and the plain version; log
+    them beside the bound; (ms at the lanes the wrapper picks by itself,
+    ``chosen``, and plain ms)."""
+    ms = {}
+    for lanes in _LANES:
+        with _lanes_forced(p2, lanes):
+            ms[lanes] = _time_ms(fn, reps)
+    plain_ms = _time_ms(plain_fn, plain_reps, warmup=1)
+    _log(f"{what}: " + ", ".join(f"{n} lanes {t:.6f} ms" for n, t in ms.items())
+         + f" (the wrapper picks {chosen}); plain {plain_ms:.6f} ms; bound {bound[0]:.6f} ms "
+         f"({bound[1]}); share of the bound reached: "
+         + ", ".join(f"{n} lanes {bound[0] / t:.4f}" for n, t in ms.items()))
+    return ms[chosen], plain_ms
+
+
+def phase_poseidon2(p2):
+    """K1a vs its plain version; returns the kernel record (launches filled later)."""
     P = p2.bb.P
     rng = np.random.default_rng(SEED)
     host = rng.integers(0, P, (1 << 20, 16), dtype=np.int64)
     host = np.concatenate([host, np.zeros((1, 16), np.int64), np.full((1, 16), P - 1, np.int64)])
     x = torch.as_tensor(host, device="cuda")
-    out = p2.poseidon2_permute(x)
     plain = p2.permute_plain(x)
-    k1_err = int((out - plain).abs().max())
-    if k1_err:
-        raise AssertionError("K1 disagrees with permute_plain on 2^20+2 states")
+    k1_err = 0
+    for lanes in _LANES:
+        with _lanes_forced(p2, lanes):
+            out = p2.poseidon2_permute(x)
+        k1_err = max(k1_err, int((out - plain).abs().max()))
+        if k1_err:
+            raise AssertionError(f"K1a ({lanes} lanes) disagrees with permute_plain on 2^20+2 states")
     out_h = out.cpu().numpy()
     for i in list(range(14)) + [len(host) - 2, len(host) - 1]:
         if out_h[i].tolist() != p2.s_permute(host[i].tolist()):
-            raise AssertionError(f"K1 disagrees with s_permute on row {i}")
-    _log("K1 poseidon2: bit-equal to permute_plain on 2^20+2 states; 16 rows equal s_permute")
+            raise AssertionError(f"K1a disagrees with s_permute on row {i}")
+    _log("K1a permute: bit-equal to permute_plain on 2^20+2 states with 1 and 4 lanes; "
+         "16 rows equal s_permute")
 
-    rows = []
+    rows = {}
     for n, reps in ((1, 200), (1 << 13, 200), (1 << 16, 100), (1 << 20, 20)):
         xs = x[:n].contiguous()
         if not torch.equal(p2.poseidon2_permute(xs), p2.permute_plain(xs)):
-            raise AssertionError(f"K1 disagrees with permute_plain at N={n}")
-        ms = _time_ms(lambda: p2.poseidon2_permute(xs), reps)
-        plain_ms = _time_ms(lambda: p2.permute_plain(xs), max(2, reps // 20), warmup=1)
-        bound, by = _bound_ms(n, work, K1_BYTES_PER_PERM)
-        rows.append((n, ms, plain_ms, bound, by))
-        _log(f"K1 N={n:>8}: kernel {ms:.6f} ms ({n / ms * 1e3:.4e} perm/s), "
-             f"plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})")
-    # the record carries the proof-of-work grind's batch shape (2^16 states)
-    n, ms, plain_ms, bound, by = rows[2]
-    return {
-        "name": "poseidon2_permute",
-        "route": "cuda",
-        "source": "dvt_circuits_tpu_torch/csrc/poseidon2.cu",
-        "replaces": "dvt_circuits_tpu/hash/poseidon2_pallas.py:71",
-        "shape": [n, 16],
-        "launches": None,
-        "max_abs_err": k1_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": None,
-    }
+            raise AssertionError(f"K1a disagrees with permute_plain at N={n}")
+        bound = k1_bound_ms(n, n * K1_BYTES_PER_PERM)
+        rows[n] = _k1_times(p2, f"K1a permute N={n}", lambda: p2.poseidon2_permute(xs), reps,
+                            lambda: p2.permute_plain(xs), max(2, reps // 20), bound,
+                            p2._lanes(n)) + (bound,)
+    # the record carries the prover's shape: one state per duplex
+    ms, plain_ms, bound = rows[1]
+    return _k1_record("poseidon2_permute", (1, 16), k1_err, ms, plain_ms, bound)
+
+
+def phase_sponge(p2):
+    """K1b, the leaf sponge, at the prover's matrix shapes: the curve fault's
+    trace LDE (2^14 x 4314), the SHA-256 table's (2^12 x 336) and the
+    stream table's (2^14 x 32); also on strided views."""
+    rng = np.random.default_rng(SEED + 4)
+    err, rec = 0, None
+    for n, w, reps in ((1 << 14, 4314, 10), (1 << 12, 336, 50), (1 << 14, 32, 100)):
+        m = torch.as_tensor(rng.integers(0, p2.bb.P, (n, w)), device="cuda")
+        plain = p2.hash_rows_plain(m)
+        padded = torch.empty((n, w + 3), dtype=torch.int64, device="cuda")
+        padded[:, 3:] = m
+        views = [m, padded[:, 3:]]  # row stride w + 3
+        if w < 1000:
+            views.append(m.t().contiguous().t())  # column-major: row stride 1
+        for view in views:
+            for lanes in _LANES:
+                with _lanes_forced(p2, lanes):
+                    got = p2.poseidon2_hash_rows(view)
+                err = max(err, int((got - plain).abs().max()))
+                if err:
+                    raise AssertionError(f"K1b ({lanes} lanes, strides {view.stride()}) disagrees "
+                                         f"with hash_rows_plain at {n} x {w}")
+        del padded, views
+        out = torch.empty((n, 8), dtype=torch.int64, device="cuda")
+        bound = k1_bound_ms(n * -(-w // 8), n * (w + 8) * 8)
+        ms, plain_ms = _k1_times(
+            p2, f"K1b hash_rows {n} x {w} ({n * -(-w // 8)} permutations)",
+            lambda: p2.poseidon2_hash_rows(m, out), reps,
+            lambda: p2.hash_rows_plain(m), 2, bound, p2._lanes(n))
+        if rec is None:  # the record carries the trace LDE's shape
+            rec = ((n, w), ms, plain_ms, bound)
+        del m, plain, out
+    _log("K1b hash_rows: bit-equal to hash_rows_plain at every shape and stride, 1 and 4 lanes")
+    shape, ms, plain_ms, bound = rec
+    return _k1_record("poseidon2_hash_rows", shape, err, ms, plain_ms, bound)
+
+
+def phase_levels(p2):
+    """K1c, the Merkle levels of the curve fault's trace tree (2^14 leaves)."""
+    n = 1 << 14
+    rng = np.random.default_rng(SEED + 5)
+    buf = torch.empty((2 * n - 1, 8), dtype=torch.int64, device="cuda")
+    buf[:n] = torch.as_tensor(rng.integers(0, p2.bb.P, (n, 8)), device="cuda")
+    want = buf.clone()
+    p2.merkle_levels_plain(want, n)
+    err = 0
+    for lanes in _LANES:
+        buf[n:] = 0
+        with _lanes_forced(p2, lanes):
+            p2.poseidon2_merkle_levels(buf, n)
+        err = max(err, int((buf - want).abs().max()))
+        if err:
+            raise AssertionError(f"K1c ({lanes} lanes) disagrees with merkle_levels_plain")
+    _log(f"K1c merkle_levels: bit-equal to merkle_levels_plain at {n} leaves, 1 and 4 lanes")
+    bound = k1_bound_ms(n - 1, (2 * n - 1) * 8 * 8)
+    ms, plain_ms = _k1_times(
+        p2, f"K1c merkle_levels {n} leaves ({n - 1} permutations)",
+        lambda: p2.poseidon2_merkle_levels(buf, n), 50,
+        lambda: p2.merkle_levels_plain(want, n), 5, bound, p2._LEVEL_LANES)
+    return _k1_record("poseidon2_merkle_levels", (n, 8), err, ms, plain_ms, bound)
+
+
+def phase_grind(p2):
+    """K1d, one batch of the proof-of-work search at the prover's shape
+    (2^16 candidates, 16 bits), at pending positions 0, 3 and 7."""
+    count, bits = 1 << 16, 16
+    rng = np.random.default_rng(SEED + 6)
+    base = torch.as_tensor(rng.integers(0, p2.bb.P, 16), device="cuda")
+    for pos in (0, 3, 7):
+        want = p2.grind_plain(base, pos, bits, 0, count)
+        for lanes in _LANES:
+            with _lanes_forced(p2, lanes):
+                got = p2.poseidon2_grind(base, pos, bits, 0, count)
+            if got != want:
+                raise AssertionError(f"K1d ({lanes} lanes) found {got}, grind_plain {want} "
+                                     f"(pending position {pos})")
+        _log(f"K1d grind: pending position {pos}: lowest witness {want} with 1 and 4 lanes "
+             f"and in grind_plain")
+    bound = k1_bound_ms(count, 16 * 8 + 8)
+    ms, plain_ms = _k1_times(
+        p2, f"K1d grind {count} candidates (launch and 8-byte read)",
+        lambda: p2.poseidon2_grind(base, 0, bits, 0, count), 50,
+        lambda: p2.grind_plain(base, 0, bits, 0, count), 5, bound, p2._lanes(count))
+    return _k1_record("poseidon2_grind", (count, 16), 0, ms, plain_ms, bound)
 
 
 def phase_keccak(kk, work):
@@ -251,7 +428,7 @@ def phase_keccak(kk, work):
         ys = y[:n].contiguous()
         ms = _time_ms(lambda: kk.keccak_f1600(ys), reps)
         plain_ms = _time_ms(lambda: kk.keccak_f1600_plain(ys), max(2, reps // 20), warmup=1)
-        bound, by = _bound_ms(n, work, K2_BYTES_PER_PERM)
+        bound, by = _bound_ms(n, work, n * K2_BYTES_PER_PERM)
         rows.append((n, ms, plain_ms, bound, by))
         _log(f"K2 N={n:>8}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
              f"bound {bound:.9f} ms ({by})")
@@ -287,7 +464,7 @@ def phase_mulchain(pv, work):
     x = x_all[:16].contiguous()
     ms = _time_ms(lambda: pv.mulchain(x), 50)
     plain_ms = _time_ms(lambda: pv.mulchain_plain(x), 2, warmup=1)
-    bound, by = _bound_ms(x.numel(), work, K3_BYTES_PER_ELEM)
+    bound, by = _bound_ms(x.numel(), work, x.numel() * K3_BYTES_PER_ELEM)
     imad_per_s = x.numel() * pv.CHAIN / ms * 1e3
     _log(f"K3 (16, 2^18): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
          f"({by}); {imad_per_s:.4e} IMAD/s = {imad_per_s / _INT32_OPS_PER_S:.4f} of "
@@ -367,8 +544,58 @@ def _wrappers() -> dict:
     from dvt_circuits_tpu_torch.hash import keccak, poseidon2
 
     return {"poseidon2_permute": poseidon2.poseidon2_permute,
+            "poseidon2_hash_rows": poseidon2.poseidon2_hash_rows,
+            "poseidon2_merkle_levels": poseidon2.poseidon2_merkle_levels,
+            "poseidon2_grind": poseidon2.poseidon2_grind,
             "keccak_f1600": keccak.keccak_f1600,
             "mulchain": probe_vpu.mulchain}
+
+
+class _TreeCount:
+    """Counts, while active, the Merkle trees committed (each ``MerkleTree``
+    and each ``merkle_root`` call, through whichever module holds the name)
+    and the batched opening checks (``verify_openings_batch``).  ``check``
+    then holds the leaf sponge to one launch for each of them: a tree that
+    took more or none, or rows hashed by another route, fail the run."""
+
+    def __enter__(self):
+        from dvt_circuits_tpu_torch.pcs import fri, merkle  # noqa: F401  (holders of the names)
+        from dvt_circuits_tpu_torch.stark import prover, verifier  # noqa: F401
+
+        self.trees = self.batches = 0
+        targets = [(merkle.MerkleTree, "__init__", "trees")]
+        counted = {id(merkle.merkle_root): "trees", id(merkle.verify_openings_batch): "batches"}
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("dvt_circuits_tpu_torch."):
+                targets += [(mod, attr, counted[id(value)])
+                            for attr, value in list(vars(mod).items()) if id(value) in counted]
+        self._saved = [(holder, attr, getattr(holder, attr)) for holder, attr, _ in targets]
+        for (holder, attr, what), (_, _, fn) in zip(targets, self._saved):
+            setattr(holder, attr, self._counting(fn, what))
+        from dvt_circuits_tpu_torch.hash.poseidon2 import poseidon2_hash_rows
+
+        self._sponge, self._before = poseidon2_hash_rows, poseidon2_hash_rows.launches
+        return self
+
+    def _counting(self, fn, what: str):
+        def counted(*args, **kwargs):
+            setattr(self, what, getattr(self, what) + 1)
+            return fn(*args, **kwargs)
+
+        return counted
+
+    def __exit__(self, *exc):
+        for holder, attr, value in self._saved:
+            setattr(holder, attr, value)
+        return False
+
+    def check(self, path: str) -> None:
+        launches = self._sponge.launches - self._before
+        _log(f"{path}: {self.trees} Merkle trees committed, {self.batches} batched opening "
+             f"checks, {launches} leaf-sponge launches")
+        if self.trees == 0 or launches != self.trees + self.batches:
+            raise AssertionError(f"{path}: {launches} leaf-sponge launches for {self.trees} trees "
+                                 f"and {self.batches} opening batches (one each expected)")
 
 
 def _reset_counts() -> None:
@@ -377,12 +604,19 @@ def _reset_counts() -> None:
         fn.launches = 0
 
 
+#: the K1 entry points every prove launches, and every verify
+_K1_PROVE = ("poseidon2_permute", "poseidon2_hash_rows", "poseidon2_merkle_levels",
+             "poseidon2_grind")
+_K1_VERIFY = ("poseidon2_permute", "poseidon2_hash_rows", "poseidon2_merkle_levels")
+
+
 def _read_counts(path: str, expected) -> dict:
     """The launch counts of the path just driven; fails if a kernel the path
     runs was not launched."""
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in _wrappers().items()}
-    _log(f"launches on path {path!r}: {counts}")
+    k1 = sum(v for k, v in counts.items() if k.startswith("poseidon2_"))
+    _log(f"launches on path {path!r}: {counts}; K1 in all: {k1}")
     for name in expected:
         if counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on path {path!r}")
@@ -398,14 +632,16 @@ def phase_main_path(p2, kk, tmp: Path):
 
     # -- the measured run: counts reset just before, read just after -------
     _reset_counts()
-    t0 = time.perf_counter()
-    container = prove_circuit("bad-share", data, True, DEFAULT_CONFIG, device="cuda")
-    proof_path = tmp / "proof.bin"
-    save_proof(container, str(proof_path))
-    fingerprint = cli._artifact_fingerprint(str(proof_path), device="cuda")
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = _read_counts("bad-share pre-curve", ("poseidon2_permute", "keccak_f1600"))
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        container = prove_circuit("bad-share", data, True, DEFAULT_CONFIG, device="cuda")
+        proof_path = tmp / "proof.bin"
+        save_proof(container, str(proof_path))
+        fingerprint = cli._artifact_fingerprint(str(proof_path), device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    launches = _read_counts("bad-share pre-curve", _K1_PROVE + ("keccak_f1600",))
+    trees.check("bad-share pre-curve")
     _log(f"main path (cold): prove+save+fingerprint {cold_s:.3f} s, timing {container['timing']}")
 
     tables = [("stream", container["stark"])] + [
@@ -529,11 +765,13 @@ def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_check
     from torch.profiler import ProfilerActivity, profile
 
     _reset_counts()
-    t0 = time.perf_counter()
-    container = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = _read_counts(f"{circuit} curve", ("poseidon2_permute",))
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        container = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    launches = _read_counts(f"{circuit} curve", _K1_PROVE)
+    trees.check(f"{circuit} curve")
     _log(f"{circuit} (cold): prove {cold_s:.3f} s, timing {container['timing']}")
     tables = _log_tables(container)
     g1 = container["gadgets"][-1]
@@ -565,11 +803,13 @@ def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_check
     _log_profile(prof, prof_s)
 
     _reset_counts()
-    t0 = time.perf_counter()
-    res = verify_proof(container, circuit, strict=True, device="cuda")
-    torch.cuda.synchronize()
-    verify_s = time.perf_counter() - t0
-    verify_launches = _read_counts(f"{circuit} verify", ("poseidon2_permute",))
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        res = verify_proof(container, circuit, strict=True, device="cuda")
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+    verify_launches = _read_counts(f"{circuit} verify", _K1_VERIFY)
+    trees.check(f"{circuit} verify")
     _log(f"{circuit} verify on cuda: {res} in {verify_s:.3f} s")
     if (res.binding, res.g1_relations, res.sig_checks) != ("curve-bound+sig", 1, sig_checks):
         raise AssertionError(f"the port's verifier returned {res} for {circuit}")
@@ -711,9 +951,12 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = kernels.build_all()
     _log(f"kernels built in {time.perf_counter() - t0:.3f} s: {', '.join(kernels.KERNEL_SOURCES)}")
+    _log("K1 build report (nvcc -Xptxas -v): " + " | ".join(
+        ln.strip() for ln in kernels.build_log("poseidon2").splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln))
     work = kernel_work(libs)
 
-    records = [phase_poseidon2(p2, work["poseidon2_permute"]),
+    records = [phase_poseidon2(p2), phase_sponge(p2), phase_levels(p2), phase_grind(p2),
                phase_keccak(kk, work["keccak_f1600"]),
                phase_mulchain(probe_vpu, work["mulchain"])]
     by_path = {}
@@ -730,10 +973,9 @@ def main() -> int:
         phase_gpu_equals_cpu()
         phase_cli_curve(kk, curve_data, Path(tmp))
     # the record's count: the path each kernel serves (K3: the probe)
-    main_path = {"poseidon2_permute": "bad-share curve", "keccak_f1600": "bad-share pre-curve",
-                 "mulchain": "probe"}
+    main_path = {"keccak_f1600": "bad-share pre-curve", "mulchain": "probe"}
     for rec in records:
-        rec["launches"] = by_path[main_path[rec["name"]]][rec["name"]]
+        rec["launches"] = by_path[main_path.get(rec["name"], "bad-share curve")][rec["name"]]
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}
 
     print(json.dumps({"kernels": records}))

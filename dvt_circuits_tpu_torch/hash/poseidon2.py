@@ -2,9 +2,11 @@
 
 Port of ``dvt_circuits_tpu/hash/poseidon2.py`` (constants, scalar oracle,
 batched permutation) and of its Pallas kernel
-``dvt_circuits_tpu/hash/poseidon2_pallas.py:_kernel`` (K1).  One kernel
-carries every Poseidon2 call of the prover: Merkle leaf sponges and
-2-to-1 compressions, the Fiat–Shamir duplex and the proof-of-work grind.
+``dvt_circuits_tpu/hash/poseidon2_pallas.py:_kernel`` (K1).  K1 carries
+every Poseidon2 call of the prover and the verifier through four entry
+points, each with its plain PyTorch version here: the permutation
+(K1a, the Fiat–Shamir duplex), the Merkle leaf sponge (K1b), the Merkle
+levels (K1c) and the proof-of-work search (K1d).
 
 Round structure: external layer; 4 full rounds (add constant, x⁷ on all 16
 words, external layer); 13 partial rounds (x⁷ on word 0, internal layer
@@ -179,19 +181,83 @@ def permute_plain(states: torch.Tensor, consts: dict | None = None) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# Kernel K1: csrc/poseidon2.cu
+# Plain versions of the loops around the permutation (the CPU path, and the
+# references of K1b-K1d)
 # ---------------------------------------------------------------------------
+
+
+def hash_rows_plain(matrix: torch.Tensor) -> torch.Tensor:
+    """Overwrite-mode rate-8 sponge of each row of an (n, w) int64 matrix:
+    ``state[:8] = chunk`` (the last chunk zero-padded), permute; the digest
+    is ``state[:8]`` → (n, 8)."""
+    n, w = matrix.shape
+    state = matrix.new_zeros((n, WIDTH))
+    for off in range(0, w, RATE):
+        chunk = matrix[:, off : off + RATE]
+        state[:, : chunk.shape[1]] = chunk
+        state[:, chunk.shape[1] : RATE] = 0
+        state = permute_plain(state)
+    return state[:, :DIGEST_WIDTH].contiguous()
+
+
+def compress_plain(pairs: torch.Tensor) -> torch.Tensor:
+    """(m, 16) digest pairs ``left ‖ right`` → (m, 8) parents."""
+    return permute_plain(pairs)[:, :DIGEST_WIDTH].contiguous()
+
+
+def merkle_levels_plain(buf: torch.Tensor, n: int) -> None:
+    """Fill a (2n − 1, 8) buffer whose first n rows are leaf digests with
+    every level after them, level by level; the root is the last row."""
+    off = 0
+    while n > 1:
+        buf[off + n : off + n + n // 2] = compress_plain(buf[off : off + n].reshape(n // 2, WIDTH))
+        off += n
+        n //= 2
+
+
+def grind_plain(base: torch.Tensor, pos: int, bits: int, start: int, count: int):
+    """Lowest w in [start, start + count) whose state — ``base`` with word
+    ``pos`` set to w mod p — permutes to a word 0 with ``bits`` low zero
+    bits; None if there is none."""
+    cands = torch.arange(start, start + count, dtype=torch.int64, device=base.device) % bb.P
+    states = base.expand(count, WIDTH).clone()
+    states[:, pos] = cands
+    hits = torch.nonzero((permute_plain(states)[:, 0] & ((1 << bits) - 1)) == 0)
+    return start + int(hits[0, 0]) if hits.numel() else None
+
+
+# ---------------------------------------------------------------------------
+# Kernel K1: csrc/poseidon2.cu (+ poseidon2_core.cuh), four entry points
+# ---------------------------------------------------------------------------
+
+#: states per launch from which one lane per state is the faster layout on
+#: the H100; below it each state is split over 4 lanes, one M4 group each
+#: (chip_smoke.py times both at the main path's shapes)
+_FULL_STATES = 1 << 14
+#: lanes per state of K1c: the faster layout for the levels above 2^14 leaves
+_LEVEL_LANES = 4
+
+
+def _lanes(states: int) -> int:
+    """Lanes per state for a launch over ``states`` states: 1 or 4."""
+    return 1 if states >= _FULL_STATES else 4
 
 
 @lru_cache(maxsize=None)
 def _library():
     """K1's library, loaded once, with the round constants uploaded."""
     lib = kernels.load("poseidon2")
-    lib.p2_set_constants.argtypes = [ctypes.c_void_p] * 3
-    lib.p2_set_constants.restype = ctypes.c_int
-    lib.p2_permute.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_longlong, ctypes.c_void_p]
-    lib.p2_permute.restype = ctypes.c_int
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    signatures = {
+        "p2_set_constants": [ptr] * 3,
+        "p2_permute": [ptr, ptr, i64, i32, ptr],
+        "p2_hash_rows": [ptr, i64, i64, i64, i64, ptr, i32, ptr],
+        "p2_merkle_levels": [ptr, i64, i32, ptr, ctypes.POINTER(ctypes.c_int)],
+        "p2_grind": [ptr, i32, ctypes.c_uint, i64, i64, ptr, i32, ptr],
+    }
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
     arrs = [np.ascontiguousarray(a, dtype=np.uint32) for a in constant_arrays().values()]
     kernels.check(
         lib.p2_set_constants(*[a.ctypes.data_as(ctypes.c_void_p) for a in arrs]),
@@ -200,31 +266,106 @@ def _library():
     return lib
 
 
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain path)."""
+    if t.dtype != torch.int64:
+        raise ValueError(f"{what}: expected int64, got {t.dtype}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
 def poseidon2_permute(states: torch.Tensor) -> torch.Tensor:
-    """Permute a batch of (N, 16) int64 standard-form states.
+    """K1a: permute a batch of (N, 16) int64 standard-form states.
 
     A CPU tensor takes ``permute_plain``; a CUDA tensor launches kernel K1
     (``csrc/poseidon2.cu``) or raises.  K1 replaces the Pallas kernel
     ``dvt_circuits_tpu/hash/poseidon2_pallas.py:_kernel``."""
-    if states.dim() != 2 or states.shape[1] != WIDTH or states.dtype != torch.int64:
+    if states.dim() != 2 or states.shape[1] != WIDTH:
         raise ValueError(f"expected (N, {WIDTH}) int64 states, got "
                          f"{tuple(states.shape)} {states.dtype}")
-    if states.device.type == "cpu":
+    if not _on_card(states, "poseidon2_permute"):
         return permute_plain(states)
-    if states.device.type != "cuda":
-        raise ValueError(f"unsupported device {states.device}")
     states = states.contiguous()
     out = torch.empty_like(states)
     n = states.shape[0]
     if n:
-        lib = _library()
         kernels.check(
-            lib.p2_permute(states.data_ptr(), out.data_ptr(), n,
-                           kernels.stream_handle(states)),
+            _library().p2_permute(states.data_ptr(), out.data_ptr(), n,
+                                  _lanes(n), kernels.stream_handle(states)),
             "poseidon2 kernel launch",
         )
         poseidon2_permute.launches += 1
     return out
 
 
+def poseidon2_hash_rows(matrix: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K1b: the leaf sponge (``hash_rows_plain``) of every row of an (n, w)
+    int64 matrix → (n, 8), in one launch on the card.  The matrix may have
+    any strides; ``out``, if given, is a contiguous (n, 8) int64 tensor on
+    the same device."""
+    if matrix.dim() != 2:
+        raise ValueError(f"expected an (n, w) matrix, got {tuple(matrix.shape)}")
+    n, w = matrix.shape
+    if out is None:
+        out = matrix.new_empty((n, DIGEST_WIDTH))
+    elif (out.shape != (n, DIGEST_WIDTH) or not out.is_contiguous()
+          or out.device != matrix.device or out.dtype != torch.int64):
+        raise ValueError("out must be a contiguous (n, 8) int64 tensor beside the matrix")
+    if not _on_card(matrix, "poseidon2_hash_rows"):
+        out.copy_(hash_rows_plain(matrix))
+        return out
+    if n:
+        kernels.check(
+            _library().p2_hash_rows(matrix.data_ptr(), n, w, matrix.stride(0), matrix.stride(1),
+                                    out.data_ptr(), _lanes(n),
+                                    kernels.stream_handle(matrix)),
+            "poseidon2 sponge launch",
+        )
+        poseidon2_hash_rows.launches += 1
+    return out
+
+
+def poseidon2_merkle_levels(buf: torch.Tensor, n: int) -> None:
+    """K1c: fill a contiguous (2n − 1, 8) int64 buffer whose first n rows
+    are leaf digests (n a power of two) with every level of the tree,
+    in place (``merkle_levels_plain``): one launch per level, one for the
+    levels of at most 128 parents at the top."""
+    if buf.shape != (2 * n - 1, DIGEST_WIDTH) or n & (n - 1) or not buf.is_contiguous():
+        raise ValueError(f"expected a contiguous ({2 * n - 1}, 8) buffer for {n} leaves")
+    if not _on_card(buf, "poseidon2_merkle_levels"):
+        merkle_levels_plain(buf, n)
+        return
+    launched = ctypes.c_int(0)
+    err = _library().p2_merkle_levels(buf.data_ptr(), n, _LEVEL_LANES,
+                                      kernels.stream_handle(buf), ctypes.byref(launched))
+    poseidon2_merkle_levels.launches += launched.value
+    kernels.check(err, "poseidon2 Merkle level launch")
+
+
+def poseidon2_grind(base: torch.Tensor, pos: int, bits: int, start: int, count: int):
+    """K1d: one batch of the proof-of-work search (``grind_plain``): the
+    lowest w in [start, start + count) with ``bits`` zero low bits, or None.
+    ``base`` is the pending (16,) int64 state; on the card each thread
+    builds and permutes its own candidate, and the host reads back 8
+    bytes."""
+    if base.shape != (WIDTH,) or not 0 <= pos < RATE or not 0 <= bits <= 27 or count < 1:
+        raise ValueError("grind: expected a (16,) state, 0 <= pos < 8, bits <= 27, count >= 1")
+    if not _on_card(base, "poseidon2_grind"):
+        return grind_plain(base, pos, bits, start, count)
+    base = base.contiguous()
+    best = torch.full((1,), -1, dtype=torch.int64, device=base.device)
+    kernels.check(
+        _library().p2_grind(base.data_ptr(), pos, (1 << bits) - 1, start, count, best.data_ptr(),
+                            _lanes(count), kernels.stream_handle(base)),
+        "poseidon2 grind launch",
+    )
+    poseidon2_grind.launches += 1
+    w = int(best.item())
+    return None if w == -1 else w
+
+
 poseidon2_permute.launches = 0
+poseidon2_hash_rows.launches = 0
+poseidon2_merkle_levels.launches = 0
+poseidon2_grind.launches = 0

@@ -5,7 +5,9 @@ its own shared library with a plain C interface, loaded with ``ctypes``.
 Libraries are keyed by a hash of the sources, so an edited kernel is
 rebuilt on its next use.  Builds land in ``build/kernels/`` at the
 repository root (git-ignored); ``build_all`` starts one ``nvcc`` per source
-at once.  Nothing here runs at import time.
+at once and keeps each compiler's report (``-Xptxas -v``: registers,
+spills) beside its library (``build_log``).  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ KERNEL_SOURCES = ("poseidon2", "keccak", "mulchain")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -79,10 +81,16 @@ def build_all(names=KERNEL_SOURCES) -> dict:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
         else:
+            out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: _library_path(name) for name in names}
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for ``csrc/<name>.cu`` (after ``build_all``)."""
+    return _library_path(name).with_suffix(".log").read_text(errors="replace")
 
 
 def load(name: str) -> ctypes.CDLL:

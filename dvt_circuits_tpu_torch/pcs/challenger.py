@@ -4,9 +4,10 @@ Port of ``dvt_circuits_tpu/pcs/challenger.py``: the same transcript spec
 (observe/duplex/sample, RATE = 8, ``sample_bits`` ≤ 27, grind witness =
 lowest w with ``sample_bits(bits) == 0`` after ``observe(w)``).  The
 buffers stay host-side Python ints; every duplex permutes its one state
-through ``poseidon2_permute`` on the challenger's device (kernel K1 on the
-card), and the grind permutes a whole batch of candidate states built on
-the device.
+through ``poseidon2_permute`` on the challenger's device (K1a on the card),
+and the grind searches batches of candidates with ``poseidon2_grind`` (K1d:
+each candidate state is built and permuted in its own thread, and one
+8-byte result per batch comes back).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from .. import kernels
 from ..field import babybear as bb
 from ..field import ext
-from ..hash.poseidon2 import RATE, WIDTH, poseidon2_permute
+from ..hash.poseidon2 import RATE, WIDTH, poseidon2_grind, poseidon2_permute
 
 
 class DuplexChallenger:
@@ -84,15 +85,10 @@ class DuplexChallenger:
         batch = 1 << min(bits + 2, 16)
         pos = len(self.input_buffer)
         base = torch.tensor(self._pending_state(), dtype=torch.int64, device=self.device)
-        mask = (1 << bits) - 1
         start = 0
         while True:
-            cands = torch.arange(start, start + batch, dtype=torch.int64, device=self.device) % bb.P
-            states = base.expand(batch, WIDTH).clone()
-            states[:, pos] = cands
-            hits = torch.nonzero((poseidon2_permute(states)[:, 0] & mask) == 0)
-            if hits.numel():
-                w = int(cands[hits[0, 0]])
+            w = poseidon2_grind(base, pos, bits, start, batch)
+            if w is not None:
                 assert self.check_witness(bits, w)
                 return w
             start += batch

@@ -1,18 +1,20 @@
 """Poseidon2 Merkle commitments over BabyBear matrices.
 
-Port of ``dvt_circuits_tpu/pcs/merkle.py``.  Every permutation goes
-through ``poseidon2_permute`` — kernel K1 on the card:
+Port of ``dvt_circuits_tpu/pcs/merkle.py``.  Every permutation goes through
+kernel K1 on the card (``hash/poseidon2.py``):
 
   * leaves: a rate-8 overwrite-mode sponge over each row —
-    ``state[:8] = chunk``, permute, digest ``state[:8]`` (one batched
-    permutation per 8 columns);
-  * interior nodes: ``left ‖ right`` fills the 16-word state, permute,
-    keep ``[:8]`` (one batched permutation per level).
+    ``state[:8] = chunk``, permute, digest ``state[:8]`` — in one launch per
+    tree (K1b, ``poseidon2_hash_rows``);
+  * interior nodes: ``left ‖ right`` fills the 16-word state, permute, keep
+    ``[:8]`` — written level by level into one (2n − 1, 8) buffer whose
+    views are the tree's levels (K1c, ``poseidon2_merkle_levels``).
 
-Openings read host mirrors fetched in one transfer per level, as the JAX
+Openings read host mirrors fetched in one transfer per tree, as the JAX
 tree does.  Verification: ``verify_opening`` walks one opening with the
 scalar permutation; ``verify_openings_batch`` walks every query's opening
-of one tree at once through ``poseidon2_permute`` on the verifier's device.
+of one tree at once on the verifier's device: its rows through K1b, each
+level of the climb through K1a.
 """
 
 from __future__ import annotations
@@ -20,40 +22,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..hash.poseidon2 import DIGEST_WIDTH, RATE, WIDTH, poseidon2_permute, s_permute
+from ..hash.poseidon2 import (
+    DIGEST_WIDTH,
+    RATE,
+    WIDTH,
+    poseidon2_hash_rows,
+    poseidon2_merkle_levels,
+    poseidon2_permute,
+    s_permute,
+)
 
 
-def hash_rows(matrix: torch.Tensor) -> torch.Tensor:
-    """Sponge-hash each row of an (n, w) int64 matrix → (n, 8) digests."""
-    n, w = matrix.shape
-    pad = (-w) % RATE
-    if pad:
-        matrix = torch.cat([matrix, matrix.new_zeros((n, pad))], dim=1)
-    state = matrix.new_zeros((n, WIDTH))
-    for off in range(0, matrix.shape[1], RATE):
-        state = poseidon2_permute(torch.cat([matrix[:, off : off + RATE], state[:, RATE:]], dim=1))
-    return state[:, :DIGEST_WIDTH]
+#: sponge-hash each row of an (n, w) int64 matrix → (n, 8) digests
+hash_rows = poseidon2_hash_rows
 
 
-def compress_pairs(digests: torch.Tensor) -> torch.Tensor:
-    """(n, 2, 8) digest pairs → (n, 8) parent digests."""
-    n = digests.shape[0]
-    state = digests.reshape(n, 2 * DIGEST_WIDTH)  # 2·8 == WIDTH: no zero tail
-    return poseidon2_permute(state)[:, :DIGEST_WIDTH]
+def build_tree(matrix: torch.Tensor) -> torch.Tensor:
+    """The (2n − 1, 8) buffer of an n-row matrix's tree: the n leaf digests,
+    then each compress level, the root last."""
+    n = matrix.shape[0]
+    buf = matrix.new_empty((2 * n - 1, DIGEST_WIDTH))
+    hash_rows(matrix, out=buf[:n])
+    poseidon2_merkle_levels(buf, n)
+    return buf
+
+
+def tree_levels(buf: torch.Tensor) -> list:
+    """The levels of a tree buffer as views, leaves first, (1, 8) root last."""
+    levels, off, n = [], 0, (buf.shape[0] + 1) // 2
+    while n:
+        levels.append(buf[off : off + n])
+        off += n
+        n //= 2
+    return levels
 
 
 def build_levels(matrix: torch.Tensor) -> list:
     """Leaf digests then every compress level up to the (1, 8) root."""
-    levels = [hash_rows(matrix)]
-    while levels[-1].shape[0] > 1:
-        cur = levels[-1]
-        levels.append(compress_pairs(cur.view(cur.shape[0] // 2, 2, DIGEST_WIDTH)))
-    return levels
+    return tree_levels(build_tree(matrix))
 
 
 def merkle_root(matrix: torch.Tensor) -> list:
     """Root digest of an (n, w) matrix as 8 ints."""
-    return [int(v) for v in build_levels(matrix)[-1][0].tolist()]
+    return [int(v) for v in build_tree(matrix)[-1].tolist()]
 
 
 class MerkleTree:
@@ -64,12 +75,14 @@ class MerkleTree:
         if n & (n - 1):
             raise ValueError("leaf count must be a power of two")
         self.matrix = matrix
-        self.levels = build_levels(matrix)
+        self._buf = build_tree(matrix)
+        self.levels = tree_levels(self._buf)
         self._host = None  # standard-form numpy mirrors for opening
 
     def _materialize(self) -> list:
         if self._host is None:
-            self._host = [a.cpu().numpy().astype(np.uint32) for a in [self.matrix, *self.levels]]
+            host = [a.cpu().numpy().astype(np.uint32) for a in (self.matrix, self._buf)]
+            self._host = [host[0], *tree_levels(host[1])]
         return self._host
 
     @property
@@ -127,7 +140,7 @@ def verify_openings_batch(root, indices, rows: torch.Tensor, paths: torch.Tensor
         sib = paths[:, level]
         odd = (idx & 1).bool()[:, None]
         pair = torch.stack([torch.where(odd, sib, digests), torch.where(odd, digests, sib)], dim=1)
-        digests = compress_pairs(pair)
+        digests = poseidon2_permute(pair.reshape(-1, WIDTH))[:, :DIGEST_WIDTH]
         idx = idx >> 1
     want = torch.as_tensor([int(v) for v in root], dtype=torch.int64, device=rows.device)
     return want.shape == (DIGEST_WIDTH,) and bool((digests == want).all())

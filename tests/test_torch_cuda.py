@@ -73,3 +73,61 @@ def test_verifier_on_card_accepts_card_proof(card):
     assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device=card)
     assert p2.poseidon2_permute.launches > before
     assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device="cpu")
+
+
+def _k1c_launches(n):
+    """Launches of K1c for n leaves: one per level of more than 128
+    parents, one for the levels above."""
+    count, n_out = 0, n // 2
+    while n_out > 128:
+        count, n_out = count + 1, n_out // 2
+    return count + (n_out >= 1)
+
+
+@pytest.mark.parametrize("n, lanes", [((1 << 14) - 1, 4), (1 << 14, 1), ((1 << 14) + 3, 1)])
+def test_permute_kernel_lanes_match_plain(card, n, lanes):
+    assert p2._lanes(n) == lanes  # each layout is reached through the batch size
+    x = torch.as_tensor(np.random.default_rng(9).integers(0, p2.bb.P, (n, 16)), device=card)
+    assert torch.equal(p2.poseidon2_permute(x), p2.permute_plain(x))
+
+
+# (1 << 14) rows take one lane per row, the others 4
+@pytest.mark.parametrize("rows, width", [(1, 1), (2, 7), (1024, 8), (1024, 9), (1024, 33),
+                                         (1024, 4314), (1 << 12, 336), (1 << 14, 32),
+                                         (1 << 14, 9)])
+def test_sponge_kernel_matches_plain(card, rows, width):
+    rng = np.random.default_rng(rows + width)
+    m = torch.as_tensor(rng.integers(0, p2.bb.P, (rows, width)), device=card)
+    before = p2.poseidon2_hash_rows.launches
+    got = p2.poseidon2_hash_rows(m)
+    assert p2.poseidon2_hash_rows.launches == before + 1
+    assert torch.equal(got, p2.hash_rows_plain(m))
+    wide = torch.as_tensor(rng.integers(0, p2.bb.P, (2 * rows, 2 * width + 1)), device=card)
+    view = wide[::2, 1::2]  # (rows, width), row stride 4w + 2, column stride 2
+    assert torch.equal(p2.poseidon2_hash_rows(view), p2.hash_rows_plain(view))
+
+
+@pytest.mark.parametrize("n", [1, 2, 256, 1024, 1 << 14, 1 << 15])
+def test_merkle_levels_kernel_matches_plain(card, n):
+    leaves = torch.as_tensor(np.random.default_rng(n).integers(0, p2.bb.P, (n, 8)), device=card)
+    buf = torch.empty((2 * n - 1, 8), dtype=torch.int64, device=card)
+    buf[:n] = leaves
+    want = buf.clone()
+    p2.merkle_levels_plain(want, n)
+    before = p2.poseidon2_merkle_levels.launches
+    p2.poseidon2_merkle_levels(buf, n)
+    assert p2.poseidon2_merkle_levels.launches == before + _k1c_launches(n)
+    assert torch.equal(buf, want)
+
+
+@pytest.mark.parametrize("pos", [0, 3, 7])
+def test_grind_kernel_matches_plain(card, pos):
+    # 2^16 candidates take one lane each; the short batches below, 4
+    base = torch.as_tensor(np.random.default_rng(pos).integers(0, p2.bb.P, 16), device=card)
+    want = p2.grind_plain(base, pos, 12, 0, 1 << 16)
+    before = p2.poseidon2_grind.launches
+    assert p2.poseidon2_grind(base, pos, 12, 0, 1 << 16) == want
+    assert p2.poseidon2_grind.launches == before + 1
+    assert want is not None
+    assert p2.poseidon2_grind(base, pos, 12, 0, want) is None
+    assert p2.poseidon2_grind(base, pos, 12, max(want - 5, 0), 11) == want

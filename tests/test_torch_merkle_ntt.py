@@ -1,6 +1,7 @@
 """Port parity: NTT / coset LDE vs ``np_ntt`` / ``np_coset_lde``, and
 Poseidon2 Merkle trees vs ``host_merkle_root``, the JAX ``MerkleTree``
-openings and ``verify_opening``."""
+openings and ``verify_opening``; the plain leaf sponge (K1b's reference)
+vs the JAX ``hash_rows`` and the plain levels (K1c's) vs ``build_levels``."""
 
 import numpy as np
 import pytest
@@ -11,8 +12,11 @@ import jax.numpy as jnp
 from dvt_circuits_tpu.field import babybear as jbb
 from dvt_circuits_tpu.ntt.ntt import np_coset_lde, np_ntt
 from dvt_circuits_tpu.pcs import merkle as jmerkle
+from dvt_circuits_tpu_torch.hash import poseidon2 as p2
 from dvt_circuits_tpu_torch.ntt.ntt import coset_evals_to_coeffs, coset_lde, intt, ntt
 from dvt_circuits_tpu_torch.pcs import merkle
+
+from .test_torch_native import jax_native_poseidon2  # noqa: F401  (autouse)
 
 P = jbb.P
 
@@ -59,3 +63,38 @@ def test_merkle_openings_match_jax_tree_and_verify():
         assert np.array_equal(path, np.asarray(jpath))
         assert jmerkle.verify_opening(tree.root, idx, row, path)
         assert not jmerkle.verify_opening(tree.root, idx ^ 1, row, path)
+
+
+def _jax_std(a):
+    return np.asarray(jbb.from_mont(a)).astype(np.int64)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 1 << 10])
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 33, 4314])
+def test_plain_sponge_and_root_match_jax(rows, width):
+    m = _matrix(rows * 7 + width, (rows, width))
+    got = p2.hash_rows_plain(torch.as_tensor(m))
+    want = jmerkle.hash_rows(jbb.to_mont(jnp.asarray(m.astype(np.uint32))))
+    assert np.array_equal(got.numpy(), _jax_std(want))
+    assert merkle.merkle_root(torch.as_tensor(m)) == jmerkle.host_merkle_root(m.astype(np.uint32))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 1 << 10])
+def test_plain_levels_match_jax_build_levels(rows):
+    m = _matrix(rows + 1, (rows, 9))
+    levels = merkle.build_levels(torch.as_tensor(m))
+    jlevels = jmerkle.build_levels(jbb.to_mont(jnp.asarray(m.astype(np.uint32))))
+    assert [lv.shape[0] for lv in levels] == [lv.shape[0] for lv in jlevels]
+    for ours, theirs in zip(levels, jlevels):
+        assert np.array_equal(ours.numpy(), _jax_std(theirs))
+    # the levels are views into one (2n − 1, 8) buffer, root last
+    buf = levels[0]._base if levels[0]._base is not None else levels[0]
+    assert buf.shape == (2 * rows - 1, 8)
+    assert all(lv.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr() for lv in levels)
+
+
+def test_plain_sponge_takes_strided_rows():
+    wide = torch.as_tensor(_matrix(9, (64, 40)))
+    view = wide[::2, 3:36:3]  # (32, 11), both strides > 1
+    assert torch.equal(p2.hash_rows_plain(view), p2.hash_rows_plain(view.contiguous()))
+    assert torch.equal(merkle.hash_rows(view), p2.hash_rows_plain(view.contiguous()))

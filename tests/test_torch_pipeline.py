@@ -34,6 +34,8 @@ from dvt_circuits_tpu_torch.dkg.verification import compute_seed_exchange_hash
 from dvt_circuits_tpu_torch.prover import pipeline
 from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
 
+from .test_torch_native import jax_native_poseidon2  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

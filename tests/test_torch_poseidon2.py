@@ -93,3 +93,28 @@ def test_cuda_path_raises_without_a_card(monkeypatch):
         p2.poseidon2_permute(torch.zeros((4, 16), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError):
         p2.poseidon2_permute(torch.zeros((4, 15), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("pos", [0, 3, 7])
+def test_plain_grind_matches_jax_challenger(pos):
+    from dvt_circuits_tpu.pcs.challenger import DuplexChallenger as JaxChallenger
+    from dvt_circuits_tpu_torch.pcs.challenger import DuplexChallenger
+
+    ours, theirs = DuplexChallenger("cpu"), JaxChallenger()
+    for v in np.random.default_rng(pos).integers(0, P, 8 + pos).tolist():
+        ours.observe(v)
+        theirs.observe(v)
+    assert len(ours.input_buffer) == pos
+    bits = 10
+    w = ours.grind(bits)
+    assert w == theirs.grind(bits)
+    assert ours.sample() == theirs.sample()
+
+
+def test_plain_grind_batches():
+    base = torch.as_tensor(_states(5, 1)[0])
+    w = p2.grind_plain(base, 2, 9, 0, 4096)
+    assert w is not None
+    assert p2.grind_plain(base, 2, 9, 0, w) is None
+    assert p2.grind_plain(base, 2, 9, w, 16) == w
+    assert p2.poseidon2_grind(base, 2, 9, w - 3, 8) == w  # CPU tensor: the plain version

@@ -23,6 +23,8 @@ from dvt_circuits_tpu_torch.prover.pipeline import VerifyError, verify_proof
 from dvt_circuits_tpu_torch.stark import TEST_CONFIG, StarkError, prove_tables, verify
 from dvt_circuits_tpu_torch.stark.airs import FibonacciAir
 
+from .test_torch_native import jax_native_poseidon2  # noqa: F401  (autouse)
+
 
 @pytest.fixture(scope="module")
 def g1_omitted():
