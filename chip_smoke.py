@@ -32,22 +32,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      curve check), cold then warm, with launch counts; the container's
      fingerprint through K2; Merkle openings re-checked with the scalar
      permutation; the same proof on the CPU (plain path) must give equal
-     container bytes without ``timing``; the CLI ``prove`` as a subprocess;
+     container bytes without ``timing`` (the CLI runs in phase 12);
   7. the probe path: ``probe_vpu.main()`` in-process (K3 launches) and
      ``python -m dvt_circuits_tpu_torch.probe_vpu`` as a subprocess;
   8. the curve paths at full width, 7-of-10: the curve-fault bad-share
      (tables stream, sha256, g1mul with chains 256 + 6×32) and
-     bad-partial-key (6 chains of 32 bits), cold then warm, profiled; every
-     chain's result equals the host ``g1_mul``; openings re-checked; the
-     port's own strict verifier on the card says ``curve-bound+sig``;
-  9. where the time of one g1mul table goes (the prover's phases timed
-     one by one at the curve fault's table shape);
- 10. GPU == CPU at the CPU tests' inputs: the 2-of-3 curve fault and
-     bad-partial-key at ``TEST_CONFIG`` give equal container bytes;
- 11. the CLI ``prove`` of the 7-of-10 curve fault and ``verify
+     bad-partial-key (6 chains of 32 bits), cold then warm (once with each
+     prover phase's time and device memory), profiled; every chain's result
+     equals the host ``g1_mul``; openings re-checked; the port's own strict
+     verifier on the card says ``curve-bound+sig``;
+  9. finalization 7-of-10 the same way (its g1mul table 2^16 × 4314, LDE
+     2^18), with its device memory peak, unprofiled;
+ 10. where the time of one g1mul table goes (the prover's phases timed
+     one by one at the curve fault's table shape), and its constraint
+     quotient both through ``eval_tensor`` and the generic ``eval``:
+     bit-equal, each timed, with its launches (under 10,000 for the first);
+ 11. GPU == CPU at the CPU tests' inputs: the 2-of-3 curve fault,
+     bad-partial-key and finalization at ``TEST_CONFIG`` give equal
+     container bytes;
+ 12. the CLI ``prove`` of the 7-of-10 curve fault and ``verify
      --show-report`` of its file, as subprocesses;
- 12. one ``{"kernels": [...]}`` line, the card line, and as the last line
+ 13. one ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
+
+``--only phase,...`` runs the kernel builds and the named phases alone
+(``PHASES``) and prints no result line.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel that a path should launch and did not fails the run,
@@ -59,7 +68,9 @@ int32 instruction rates (see ``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the
 larger of the two.  K1's work is the permutation's, counted from its
 definition (``P2_IMAD``, ``P2_INSTR``) times the permutations of the call,
 the same for every design; K2's and K3's come from their SASS
-(``kernel_work``).
+(``kernel_work``).  No call can take less than a launch, so each record
+also carries ``launch_floor_ms``, the measured time of the cheapest launch
+(``launch_floor_ms()``), and ``floor_bound_ms``, the larger of the two.
 """
 
 from __future__ import annotations
@@ -214,6 +225,28 @@ def _bound_ms(n: int, work, bytes_moved: int):
     t_ops = n * max(total / _INT32_OPS_PER_S, imad / _IMAD_PER_S)
     t_bytes = bytes_moved / _BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def launch_floor_ms() -> float:
+    """The cheapest launch this harness can make: the fastest of an in-place
+    add, fill and copy on a one-element CUDA tensor, each timed as every
+    kernel is (``_time_ms``).  A call that launches a kernel takes about
+    this long whatever its work."""
+    one, two = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(2))
+    return min(_time_ms(fn, 1000, warmup=20)
+               for fn in (lambda: one.add_(1), lambda: one.zero_(), lambda: one.copy_(two)))
+
+
+def with_floor(rec: dict, floor_ms: float) -> dict:
+    """Adds the launch floor to a kernel record: ``floor_bound_ms`` is the
+    larger of its throughput bound (``bound_ms``) and the floor, and the log
+    line gives the kernel's share of each."""
+    rec["launch_floor_ms"] = floor_ms
+    rec["floor_bound_ms"] = max(rec["bound_ms"], floor_ms)
+    _log(f"{rec['name']} {rec['shape']}: {rec['ms']:.6f} ms; share of the throughput bound "
+         f"{rec['bound_ms'] / rec['ms']:.3e}, of the bound with the launch floor "
+         f"{rec['floor_bound_ms'] / rec['ms']:.4f}")
+    return rec
 
 
 def k1_bound_ms(perms: int, bytes_moved: int):
@@ -669,7 +702,8 @@ def phase_main_path(p2, kk, tmp: Path):
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: host-op events would double the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prove_circuit("bad-share", data, True, DEFAULT_CONFIG, device="cuda")
         torch.cuda.synchronize()
@@ -691,27 +725,7 @@ def phase_main_path(p2, kk, tmp: Path):
     if fingerprint != plain_fp:
         raise AssertionError("K2 fingerprint differs from the plain Keccak")
 
-    scenario = tmp / "scenario.json"
-    scenario.write_text(json.dumps(data.to_json(True)))
-    cli_out = tmp / "cli_proof.bin"
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "dvt_circuits_tpu_torch.cli", "--auth-commitment", "prove",
-         "--type=bad-share", "-i", str(scenario), "-o", str(cli_out)],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
-    )
-    cli_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"CLI prove exited {res.returncode}:\n{res.stdout}\n{res.stderr}")
-    line = [ln for ln in res.stdout.splitlines() if ln.startswith("Artifact keccak256: ")]
-    expected = kk.keccak256_batch(
-        [hashlib.sha256(cli_out.read_bytes()).digest()], device="cpu"
-    )[0].hex()
-    if len(line) != 1 or line[0].split(": ", 1)[1] != expected:
-        raise AssertionError(f"CLI fingerprint line {line} != plain Keccak {expected}")
-    _log(f"CLI prove subprocess: exit 0 in {cli_s:.3f} s, fingerprint matches the plain Keccak")
-    return launches, {"cold_s": cold_s, "warm_s": warm_s, "cpu_s": cpu_s,
-                      "warm_timing": warm["timing"]}
+    return launches
 
 
 def phase_probe_path() -> dict:
@@ -756,10 +770,66 @@ def _log_tables(container: dict) -> list:
     return tables
 
 
-def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_checks: int) -> tuple:
+@contextlib.contextmanager
+def _phase_memory():
+    """While active, each phase of ``stark.prover.prove`` (LDE, commit, host
+    copy of a committed matrix, quotient, openings, DEEP, FRI) is timed on
+    the host clock between two synchronizes and followed by the device
+    memory allocated and the peak so far; yields the list of (phase, shape
+    of its first tensor argument, ms, allocated GiB, peak GiB)."""
+    from dvt_circuits_tpu_torch.pcs.merkle import MerkleTree
+    from dvt_circuits_tpu_torch.stark import prover as pr
+
+    rows: list = []
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            tensors = [a.matrix if isinstance(a, MerkleTree) else a for a in args]
+            shape = next((tuple(a.shape) for a in tensors if isinstance(a, torch.Tensor)), None)
+            if name == "_materialize" and args[0]._host is not None:
+                return fn(*args, **kwargs)  # the mirror is fetched once per tree
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rows.append((name, shape, (time.perf_counter() - t0) * 1e3,
+                         torch.cuda.memory_allocated() / 2**30,
+                         torch.cuda.max_memory_allocated() / 2**30))
+            return out
+
+        return timed
+
+    targets = [(pr, name) for name in ("lde_body", "MerkleTree", "quotient_body",
+                                       "openings_body", "deep_body", "fri_prove")]
+    targets.append((MerkleTree, "_materialize"))
+    saved = [(holder, name, getattr(holder, name)) for holder, name in targets]
+    for holder, name, fn in saved:
+        setattr(holder, name, wrap(name, fn))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield rows
+    finally:
+        for holder, name, fn in saved:
+            setattr(holder, name, fn)
+
+
+def _log_phase_memory(path: str, rows: list) -> float:
+    """Logs each phase's row; returns the peak in GiB."""
+    for name, shape, ms, alloc, peak in rows:
+        _log(f"{path} phase {name} {shape}: {ms:.3f} ms, allocated after it {alloc:.3f} GiB, "
+             f"peak so far {peak:.3f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"{path}: device memory peak {peak:.3f} GiB")
+    return peak
+
+
+def phase_curve_path(circuit: str, data, chain_bits, log_n: int, sig_checks: int,
+                     profiled: bool = True) -> tuple:
     """One curve circuit at full width on the card: cold (launches counted)
-    then warm and profiled; the chains, the openings and the port's own
-    strict verifier on the card."""
+    then warm with each prover phase's time and device memory, and (if
+    ``profiled``) warm again and profiled; the chains, the openings and the
+    port's own strict verifier on the card.  ``chain_bits`` None: the chain
+    widths are logged, not held."""
     from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit, verify_proof
     from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
     from torch.profiler import ProfilerActivity, profile
@@ -775,8 +845,9 @@ def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_check
     _log(f"{circuit} (cold): prove {cold_s:.3f} s, timing {container['timing']}")
     tables = _log_tables(container)
     g1 = container["gadgets"][-1]
+    _log(f"{circuit}: g1mul chains {g1['block_counts']}")
     if ([t[0] for t in tables] != ["stream", "sha256", "g1mul"] or container["g1_omitted"]
-            or g1["block_counts"] != chain_bits or g1["proof"]["log_n"] != log_n
+            or chain_bits not in (None, g1["block_counts"]) or g1["proof"]["log_n"] != log_n
             or g1["proof"]["width"] != 4314):
         raise AssertionError(f"unexpected tables for {circuit}: "
                              f"{[(t[0], t[1]['log_n'], t[1]['width']) for t in tables]}, "
@@ -786,21 +857,28 @@ def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_check
         _check_openings(proof)
     _log(f"{circuit}: every chain equals g1_mul; openings re-hashed with s_permute reach their roots")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    _log(f"{circuit} (warm): prove {warm_s:.3f} s, timing {warm['timing']}")
+    with _phase_memory() as rows:
+        t0 = time.perf_counter()
+        warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    _log(f"{circuit} (warm, phases synchronized): prove {warm_s:.3f} s, timing {warm['timing']}")
+    _log_phase_memory(circuit, rows)
     if container_digest(warm) != container_digest(container):
         raise AssertionError(f"warm {circuit} container differs from the cold one")
-    # device activity only: ~200k launches, and host-op events would double the trace
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+    if profiled:
         torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    _log_profile(prof, prof_s)
+        t0 = time.perf_counter()
+        warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        _log(f"{circuit} (warm): prove {time.perf_counter() - t0:.3f} s, timing {warm['timing']}")
+        # device activity only: host-op events would double the trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        _log_profile(prof, prof_s)
 
     _reset_counts()
     with _TreeCount() as trees:
@@ -816,15 +894,44 @@ def phase_curve_path(circuit: str, data, chain_bits: list, log_n: int, sig_check
     return container, launches, verify_launches
 
 
+class _EvalOnly:
+    """An AIR seen through its generic ``eval`` alone: ``quotient_body`` then
+    takes the ``ProverBuilder`` route (the port's quotient before
+    ``eval_tensor`` was ported)."""
+
+    def __init__(self, air):
+        self._air = air
+        self.width = air.width
+        self.preprocessed_width = air.preprocessed_width
+
+    def eval(self, builder):
+        self._air.eval(builder)
+
+
+def _cuda_launches(fn):
+    """(fn(), device kernels it launched), from a CUDA-only profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+
+#: the tensor quotient of the curve fault's g1mul table must stay below this
+#: many launches (the generic eval's: 156,365)
+_QUOTIENT_LAUNCH_LIMIT = 10_000
+
+
 def phase_g1_breakdown() -> None:
     """Where the time of one g1mul table goes: the prover's phases at the
     curve fault's table shape (chains 256 + 6×32: 2^12 × 4314, LDE 2^14,
     ``DEFAULT_CONFIG``) on random chains from a numpy seed, each timed on
-    the host clock between two synchronizes; the device memory peak; and
-    the launches of one constraint quotient (generic ``eval``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    the host clock between two synchronizes; the device memory peak.  The
+    constraint quotient both ways in one run: through ``eval_tensor`` (the
+    prover's path) and through the generic ``eval`` (``ProverBuilder``),
+    bit-equal, each with its time and launches."""
     from dvt_circuits_tpu_torch.field import babybear as bb
     from dvt_circuits_tpu_torch.field import ext
     from dvt_circuits_tpu_torch.hostcrypto.bls12_381 import G1_GEN, g1_mul
@@ -861,37 +968,45 @@ def phase_g1_breakdown() -> None:
     timed("leaf sponge of the trace LDE (hash_rows)", lambda: hash_rows(t_lde))
     tree = timed("trace commit (leaf sponge + compress levels)", lambda: MerkleTree(t_lde))
     timed("host copy of the committed LDE (MerkleTree._materialize)", tree._materialize)
-    timed("torch.roll copy of the trace LDE", lambda: torch.roll(t_lde, -cfg.blowup, dims=0))
     tables = pr._domain_tables(log_n, cfg.log_blowup, cfg.shift, dev)
-    q_matrix, q_col_coeffs, count = timed("constraint quotient (generic eval)", lambda: (
-        pr.quotient_body(air, t_lde, p_lde, alpha, publics, tables, log_n, cfg)))
+    args = (t_lde, p_lde, alpha, publics, tables, log_n, cfg)
+    q_matrix, q_col_coeffs, count = timed("constraint quotient (eval_tensor)",
+                                          lambda: pr.quotient_body(air, *args))
     opened = timed("openings at zeta and g*zeta", lambda: pr.openings_body(
         air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, cfg))
     timed("DEEP codeword", lambda: pr.deep_body(
         air, t_lde, p_lde, q_matrix, opened, zeta, gzeta, gamma, tables, cfg))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pr.quotient_body(air, t_lde, p_lde, alpha, publics, tables, log_n, cfg)
-        torch.cuda.synchronize()
-    q_launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    generic = timed("constraint quotient (generic eval)",
+                    lambda: pr.quotient_body(_EvalOnly(air), *args))
+    if generic[2] != count or not (torch.equal(generic[0], q_matrix)
+                                   and torch.equal(generic[1], q_col_coeffs)):
+        raise AssertionError("the eval_tensor quotient differs from the generic eval's on the card")
+    _, q_launches = _cuda_launches(lambda: pr.quotient_body(air, *args))
+    _, g_launches = _cuda_launches(lambda: pr.quotient_body(_EvalOnly(air), *args))
     _log(f"g1mul table breakdown (2^{log_n} x {air.width}, LDE 2^{log_n + cfg.log_blowup}, "
          f"{count} constraints), ms on the host clock: "
          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-         + f"; device memory peak {peak_gib:.3f} GiB; one quotient: {q_launches} launches")
+         + f"; device memory peak {peak_gib:.3f} GiB (before the generic quotient)")
+    _log(f"g1mul constraint quotient on the card: eval_tensor {times['constraint quotient (eval_tensor)']:.3f} "
+         f"ms in {q_launches} launches; generic eval {times['constraint quotient (generic eval)']:.3f} "
+         f"ms in {g_launches} launches; bit-equal (q_matrix, q_col_coeffs, {count} constraints)")
+    if q_launches >= _QUOTIENT_LAUNCH_LIMIT:
+        raise AssertionError(f"the g1mul tensor quotient took {q_launches} launches")
 
 
 def phase_gpu_equals_cpu() -> None:
     """The CPU tests' curve inputs (2-of-3 committee, TEST_CONFIG): the card
     and the plain CPU path give equal containers, so JAX == port-CPU (the
-    tests) == port-GPU."""
+    tests; finalization's in the ``heavy`` test) == port-GPU."""
     from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
     from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit
     from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
 
     com = DkgCommittee(3, 2)
     for circuit, data in (("bad-share", com.shared_data_bad_secret(0, 1, True)),
-                          ("bad-partial-key", com.bad_partial_key_data(1, True))):
+                          ("bad-partial-key", com.bad_partial_key_data(1, True)),
+                          ("finalization", com.finalization_data())):
         gpu = prove_circuit(circuit, data, True, TEST_CONFIG, device="cuda")
         t0 = time.perf_counter()
         cpu = prove_circuit(circuit, data, True, TEST_CONFIG, device="cpu")
@@ -931,7 +1046,22 @@ def phase_cli_curve(kk, data, tmp: Path) -> None:
         raise AssertionError("CLI verify did not report curve-bound+sig")
 
 
-def main() -> int:
+#: the phases ``--only`` may name, in the order they run
+PHASES = ("kernels", "pre-curve", "probe", "curve", "finalization", "g1-breakdown", "gpu-cpu",
+          "cli-curve")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all; a partial run prints "
+                         "no kernels line and no result line)")
+    only = set(ap.parse_args(argv).only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"unknown phases {sorted(only - set(PHASES))}; known: {', '.join(PHASES)}")
+    full = only == set(PHASES)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
@@ -955,23 +1085,40 @@ def main() -> int:
         ln.strip() for ln in kernels.build_log("poseidon2").splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln))
     work = kernel_work(libs)
+    floor_ms = launch_floor_ms()
+    _log(f"launch floor (fastest in-place op on a one-element CUDA tensor): {floor_ms:.6f} ms")
 
-    records = [phase_poseidon2(p2), phase_sponge(p2), phase_levels(p2), phase_grind(p2),
-               phase_keccak(kk, work["keccak_f1600"]),
-               phase_mulchain(probe_vpu, work["mulchain"])]
+    records = []
+    if "kernels" in only:
+        records = [phase_poseidon2(p2), phase_sponge(p2), phase_levels(p2), phase_grind(p2),
+                   phase_keccak(kk, work["keccak_f1600"]),
+                   phase_mulchain(probe_vpu, work["mulchain"])]
+        records = [with_floor(rec, floor_ms) for rec in records]
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        by_path["bad-share pre-curve"], _ = phase_main_path(p2, kk, Path(tmp))
-        by_path["probe"] = phase_probe_path()
+        if "pre-curve" in only:
+            by_path["bad-share pre-curve"] = phase_main_path(p2, kk, Path(tmp))
+        if "probe" in only:
+            by_path["probe"] = phase_probe_path()
         com = DkgCommittee(10, 7)
         curve_data = com.shared_data_bad_secret(0, 1, True)
-        _, by_path["bad-share curve"], by_path["bad-share verify"] = phase_curve_path(
-            "bad-share", curve_data, [256] + [32] * 6, 12, 1)
-        _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
-            "bad-partial-key", com.bad_partial_key_data(1, True), [32] * 6, 11, 2)
-        phase_g1_breakdown()
-        phase_gpu_equals_cpu()
-        phase_cli_curve(kk, curve_data, Path(tmp))
+        if "curve" in only:
+            _, by_path["bad-share curve"], by_path["bad-share verify"] = phase_curve_path(
+                "bad-share", curve_data, [256] + [32] * 6, 12, 1)
+            _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
+                "bad-partial-key", com.bad_partial_key_data(1, True), [32] * 6, 11, 2)
+        if "finalization" in only:
+            _, by_path["finalization"], by_path["finalization verify"] = phase_curve_path(
+                "finalization", com.finalization_data(), None, 16, com.n, profiled=False)
+        if "g1-breakdown" in only:
+            phase_g1_breakdown()
+        if "gpu-cpu" in only:
+            phase_gpu_equals_cpu()
+        if "cli-curve" in only:
+            phase_cli_curve(kk, curve_data, Path(tmp))
+    if not full:
+        _log(f"partial run ({', '.join(p for p in PHASES if p in only)}): every check passed")
+        return 0
     # the record's count: the path each kernel serves (K3: the probe)
     main_path = {"keccak_f1600": "bad-share pre-curve", "mulchain": "probe"}
     for rec in records:

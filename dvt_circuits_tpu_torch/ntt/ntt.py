@@ -54,6 +54,10 @@ def _tables(log_n: int, inverse: bool, device: torch.device):
 
 
 def _ntt_core(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The transform into a new buffer: the bit-reversal gather, then each
+    stage's butterflies in place (one half-size temporary at a time), so a
+    transform of an n-row matrix holds its input, its output and half of
+    one more."""
     n = x.shape[0]
     log_n = n.bit_length() - 1
     if 1 << log_n != n:
@@ -65,9 +69,12 @@ def _ntt_core(x: torch.Tensor, inverse: bool) -> torch.Tensor:
         m = 1 << s
         half = m // 2
         xs = x.view(n // m, m, -1)
-        a = xs[:, :half]
-        b = xs[:, half:] * stages[s - 1].view(1, half, 1) % P
-        x = torch.cat([(a + b) % P, (a - b) % P], dim=1).view(n, -1)
+        a, b = xs[:, :half], xs[:, half:]
+        b.mul_(stages[s - 1].view(1, half, 1)).remainder_(P)
+        diff = a - b
+        a.add_(b).remainder_(P)
+        b.copy_(diff.remainder_(P))
+        del diff
     return x.view(n, *rest)
 
 
@@ -79,13 +86,13 @@ def ntt(x: torch.Tensor) -> torch.Tensor:
 def intt(x: torch.Tensor) -> torch.Tensor:
     """Inverse NTT along axis 0: evaluations → coefficients."""
     n = x.shape[0]
-    return _ntt_core(x, inverse=True) * bb.s_inv(n % P) % P
+    return _ntt_core(x, inverse=True).mul_(bb.s_inv(n % P)).remainder_(P)
 
 
-def _scale_rows(x: torch.Tensor, base: int) -> torch.Tensor:
-    """Multiply row i by baseⁱ."""
+def _scale_rows_(x: torch.Tensor, base: int) -> torch.Tensor:
+    """Multiply row i by baseⁱ, in place."""
     pw = bb.powers(base, x.shape[0], x.device)
-    return x * pw.view(-1, *([1] * (x.dim() - 1))) % P
+    return x.mul_(pw.view(-1, *([1] * (x.dim() - 1)))).remainder_(P)
 
 
 def coset_lde(evals: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR) -> torch.Tensor:
@@ -97,11 +104,12 @@ def coset_lde(evals: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR) -
 def coeffs_to_coset_evals(coeffs: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
     """Coefficients (n, ...) → evaluations over shift·K (n·2^log_blowup, ...)."""
     n = coeffs.shape[0]
-    scaled = _scale_rows(coeffs, shift)
-    pad = scaled.new_zeros((n * ((1 << log_blowup) - 1), *coeffs.shape[1:]))
-    return ntt(torch.cat([scaled, pad]))
+    padded = coeffs.new_zeros((n << log_blowup, *coeffs.shape[1:]))
+    padded[:n] = coeffs
+    _scale_rows_(padded[:n], shift)
+    return ntt(padded)
 
 
 def coset_evals_to_coeffs(evals: torch.Tensor, shift: int) -> torch.Tensor:
     """Evaluations over shift·K → coefficients (same length)."""
-    return _scale_rows(intt(evals), bb.s_inv(shift))
+    return _scale_rows_(intt(evals), bb.s_inv(shift))

@@ -431,7 +431,11 @@ def _verify_g1mul_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfi
     re-derives the DKG statement on the host and checks every chip public
     against it.  Returns the signature checks re-run from committed data."""
     chain_bits = tuple(int(v) for v in entry.get("block_counts", []))
-    if not chain_bits or len(chain_bits) > 64:
+    # the table-height cap below bounds the count (a chain is at least 58
+    # rows); the reference's cap of 64 chains rejects the finalization of
+    # committees with n·(k + 1) > 64, e.g. 7-of-10 (80 chains), that its
+    # prover proves
+    if not chain_bits:
         raise VerifyError("g1mul chain count out of range")
     if any(not 8 <= b <= 256 or b % 8 for b in chain_bits):
         raise VerifyError("g1mul chain width out of range")

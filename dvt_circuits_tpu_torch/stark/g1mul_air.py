@@ -37,8 +37,9 @@ Exceptional cases match the wide chip: the point at infinity is handled
 branchlessly via the ``inf`` flag, and a mixed-add x-collision is made
 UNPROVABLE by the H·H⁻¹ = 1 guard (ValueError at witness time).
 
-Copied from ``dvt_circuits_tpu/stark/g1mul_air.py``; the prover runs the
-generic ``eval`` (the JAX ``eval_tensor`` fast path is not ported yet).
+Copied from ``dvt_circuits_tpu/stark/g1mul_air.py``; ``eval_tensor``, the
+prover's path, is ported to int64 PyTorch ops (the verifier replays the
+scalar ``eval`` at ζ).
 """
 
 from __future__ import annotations
@@ -262,6 +263,22 @@ for _bank, _fa, _fb in MUL_WIRING["L0"]:
     assert all(t.off == 1 for t in (*_fa.terms, *_fb.terms))
 for _f in RED_WIRING["L0"]:
     assert all(t.off == 1 for t in _f.terms)
+
+
+def _carry_offsets(n_out: int, offset: int) -> List[int]:
+    """Constant of each identity column k: the carry offsets, −offset from
+    carry k − 1 and +2^10·offset from carry k, mod p."""
+    out = []
+    for kk in range(n_out):
+        kv = -offset if kk >= 1 else 0
+        if kk <= n_out - 2:
+            kv += (1 << bf.LIMB_BITS) * offset
+        out.append(kv % P_BB)
+    return out
+
+
+_KMUL = _carry_offsets(MUL_OUT, MUL_CARRY_OFFSET)
+_KRED = _carry_offsets(RED_OUT, RED_CARRY_OFFSET)
 
 
 def _g1_gen():
@@ -728,6 +745,205 @@ class G1MulAir(Air):
     # Identities (C, D) and copies (E) are enforced on the row PAIR ending
     # at the gadget's own row: gate = preprocessed_next[phase], form off=0
     # reads the local (previous) row, off=1 the next row.
+
+    def eval_tensor(self, tb):
+        """Tensor path of the prover (``stark/prover.py:TensorBuilder``):
+        groups A–K of the contract above in ``eval``'s α-power order, as int64
+        tensor ops over a block of LDE rows
+        (``dvt_circuits_tpu/stark/g1mul_air.py:eval_tensor``).  A group that
+        the reference concatenates may be asserted here in consecutive parts:
+        the α powers run on.  The mul identities (C) take all 39 × 39 limb
+        products of a row at once, each reduced, and sum them along the
+        anti-diagonals k = i + j: at most 39 reduced terms, below 2^37."""
+        import torch
+
+        P = P_BB
+        X, NXT, PRE, PREN = tb.local, tb.next, tb.pre, tb.pre_next
+        n = X.shape[0]
+        dev = X.device
+
+        def cvec(vals):
+            return torch.tensor([int(v) % P for v in vals], dtype=torch.int64, device=dev)
+
+        def gate(flag, v):
+            """flag (rows,) times v (rows, k) with |v| < p, reduced."""
+            return flag[:, None] * v % P
+
+        def gated_sum(parts):
+            """Σ flag·v over (flag, v) pairs, reduced."""
+            return sum(gate(f, v) for f, v in parts) % P
+
+        ONE_L = cvec([1] + [0] * (NLIMBS - 1))
+        PL = cvec(bf.P_LIMBS)
+        PL40 = cvec(list(bf.P_LIMBS) + [0])
+
+        # A: crumbs, in two runs around the copy banks
+        for cols in (X[:, :COPY0], X[:, MC0:B_COL]):
+            tb.assert_group(cols * (cols - 1) % P * ((cols - 2) * (cols - 3) % P) % P)
+        # B: bits
+        bits2 = X[:, [B_COL, INF_COL]]
+        tb.assert_group(bits2 * (bits2 - 1) % P)
+
+        def recomb(cols, shape, ncr):
+            """Base-4 crumbs, lowest first → values: ≤ 10 products below
+            2^49, summed, then reduced."""
+            pw = torch.tensor([1 << (2 * i) for i in range(ncr)], dtype=torch.int64, device=dev)
+            return ((cols.reshape(n, -1, ncr) * pw).sum(dim=-1) % P).reshape((n,) + shape)
+
+        # value limbs: crumb banks recombined + copy banks raw, for the local
+        # row (off=0 sources) and the next row (off=1 / outputs)
+        per_limb = VALUE_CRUMBS // NLIMBS
+        vals_c = recomb(X[:, :COPY0], (NCRUMB_BANKS, NLIMBS), per_limb)
+        vals_cn = recomb(NXT[:, :COPY0], (NCRUMB_BANKS, NLIMBS), per_limb)
+        copies = X[:, COPY0:MC0].reshape(n, 8, NLIMBS)
+        copies_n = NXT[:, COPY0:MC0].reshape(n, 8, NLIMBS)
+
+        def slot_limbs(idx, off):
+            if idx < NCRUMB_BANKS:
+                return (vals_cn if off else vals_c)[:, idx]
+            return (copies_n if off else copies)[:, idx - NCRUMB_BANKS]
+
+        # only the next row's carries and red quotient enter the identities
+        cm_n = recomb(NXT[:, MC0:RQ0], (NUM_MULS, MUL_CARRIES), MUL_CARRY_CRUMBS)
+        qs_n = recomb(NXT[:, RQ0:RC0], (), RED_Q_CRUMBS)
+        rcm_n = recomb(NXT[:, RC0:B_COL], (RED_CARRIES,), RED_CARRY_CRUMBS)
+
+        # public operand limbs per chain, (chains, 39) each
+        pubs = tb.publics
+        nc = self.num_chains
+        op_base = [self.pub_base[ci] + self.chain_bits[ci] // 8 for ci in range(nc)]
+        ops = {
+            which: pubs[torch.tensor([[b0 + sh + i for i in range(NLIMBS)] for b0 in op_base],
+                                     device=dev)]
+            for which, sh in (("opx", 0), ("opy", NLIMBS))
+        }
+        _op_cache = {}
+
+        def op_limbs_gated(which, use_next):
+            """Σ_c chainflag_c·pub_op_c — flags from the TARGET row."""
+            key = (which, use_next)
+            if key not in _op_cache:
+                flags_c = (PREN if use_next else PRE)[:, PF_FIXED : PF_FIXED + nc]
+                _op_cache[key] = (flags_c[:, :, None] * ops[which][None] % P).sum(dim=1) % P
+            return _op_cache[key]
+
+        _form_cache = {}
+
+        def form_limbs(f: MF, nl: int):
+            """Σ coeff·value + const, limb-wise, reduced (cached per form)."""
+            key = (f, nl)
+            if key not in _form_cache:
+                parts = []
+                for t in f.terms:
+                    v = (slot_limbs(t.idx, t.off) if t.kind == "slot"
+                         else op_limbs_gated(t.kind, bool(t.off)))
+                    parts.append(v if t.coeff == 1 else v * (t.coeff % P) % P)
+                acc = sum(parts[1:], parts[0]) if parts else X.new_zeros((n, NLIMBS))
+                if nl > NLIMBS:
+                    acc = torch.nn.functional.pad(acc, (0, nl - NLIMBS))
+                if f.const:
+                    acc = acc + cvec(f.const_limbs(nl))
+                _form_cache[key] = acc % P if len(parts) > 1 or f.const else acc
+            return _form_cache[key]
+
+        flags_n = {p: PREN[:, PH[p]] for p in PHASES}
+        flags = {p: PRE[:, PH[p]] for p in PHASES}
+        limb_bits = 1 << bf.LIMB_BITS
+        kmul, kred = cvec(_KMUL), cvec(_KRED)
+
+        # C: mul identities (outputs on the NEXT row), one group per mul
+        for m in range(NUM_MULS):
+            wired = [(p, muls[m]) for p, muls in MUL_WIRING.items() if m < len(muls)]
+            a_eff = gated_sum([(flags_n[p], form_limbs(fa, NLIMBS)) for p, (_, fa, _) in wired])
+            b_eff = gated_sum([(flags_n[p], form_limbs(fb, NLIMBS)) for p, (_, _, fb) in wired])
+            r_eff = gated_sum([(flags_n[p], slot_limbs(bank, 1)) for p, (bank, _, _) in wired])
+            qv = vals_cn[:, M0Q + m]
+            prods = (a_eff[:, :, None] * b_eff[:, None, :] % P
+                     - qv[:, :, None] * PL[None, None, :] % P)  # (rows, i, j)
+            # row i shifted right by i (padding to 2·39 columns and re-cutting
+            # the flat rows at 77), then summed over i: Tm[k] = Σ_i prods[i, k − i]
+            skew = torch.nn.functional.pad(prods, (0, NLIMBS)).reshape(n, -1)
+            tm = skew[:, : NLIMBS * MUL_OUT].reshape(n, NLIMBS, MUL_OUT).sum(dim=1)
+            tm[:, :NLIMBS] -= r_eff
+            tm[:, 1:] += cm_n[:, m]
+            tm[:, :-1] -= cm_n[:, m] * limb_bits
+            tb.assert_group((tm + kmul) % P)
+
+        # D: red identity
+        wired_r = [(flags_n[p], reds[0]) for p, reds in RED_WIRING.items()]
+        f_eff = gated_sum([(fl, form_limbs(f, RED_OUT)) for fl, f in wired_r])
+        r_eff = gated_sum([(fl, slot_limbs(RR, 1)) for fl, _ in wired_r])
+        tr = f_eff - qs_n[:, None] * PL40
+        tr[:, :NLIMBS] -= r_eff
+        tr[:, 1:] += rcm_n
+        tr[:, :-1] -= rcm_n * limb_bits
+        tb.assert_group((tr + kred) % P)
+
+        # E: copy constraints — next.CP_slot = src
+        for slot in (CP3, CP4, CP5, CP6, CP7):
+            parts = [(flags_n[p], slot_limbs(slot, 1) - slot_limbs(src.idx, src.off))
+                     for p, plan in COPY_WIRING.items() for cp, src in plan if cp == slot]
+            if parts:
+                tb.assert_group(gated_sum(parts))
+        # CP1@N1 (Y carried into the OY row)
+        tb.assert_group(gate(flags_n["N1"], slot_limbs(CP1, 1) - slot_limbs(CP1, 0)))
+
+        # F: selection at L6 → next CP0..CP2 + inf transition
+        b_ = X[:, B_COL]
+        inf_ = X[:, INF_COL]
+        bi = b_ * inf_ % P
+        bni = b_ * (1 - inf_) % P
+        nb = (1 - b_) % P
+        fl6 = flags["L6"]
+        sel_specs = (
+            (op_limbs_gated("opx", False), CP3, CP5),  # x: op / mX3 / dX3
+            (op_limbs_gated("opy", False), CP7, CP6),  # y: op / mY3 / dY3
+            (ONE_L[None, :], RR, CP4),  # z: 1 / mZ3 / dZ3
+        )
+        for ci, (opl, madd_slot, dbl_slot) in enumerate(sel_specs):
+            selv = (gate(bi, opl) + gate(bni, slot_limbs(madd_slot, 0))
+                    + gate(nb, slot_limbs(dbl_slot, 0))) % P
+            tb.assert_group(gate(fl6, slot_limbs(CP0 + ci, 1) - selv))
+        tb.assert_group(fl6 * (NXT[:, INF_COL] - inf_ * nb % P) % P)
+
+        # G: chain start
+        gcs = PRE[:, PF_CHAINSTART]
+        tb.assert_group(gate(gcs, copies[:, 0]))
+        tb.assert_group(gate(gcs, copies[:, 1] - ONE_L))
+        tb.assert_group(gate(gcs, copies[:, 2]))
+        tb.assert_group(gcs * (inf_ - 1) % P)
+
+        # H: in-op propagation (gate: next row is L1..L6)
+        inop = sum(flags_n[p] for p in ("L1", "L2", "L3", "L4", "L5", "L6")) % P
+        tb.assert_group(gate(inop, torch.stack(
+            [NXT[:, B_COL] - b_, NXT[:, INF_COL] - inf_, NXT[:, S_COL] - X[:, S_COL]], dim=1)))
+
+        # I: x-collision guard (HI = 1 on L6 rows with b=1, inf=0)
+        tb.assert_group(gate(fl6 * bni % P, vals_c[:, M0R] - ONE_L))
+
+        # J: scalar accumulator [bytestart, scont], then the byte bindings
+        s_ = X[:, S_COL]
+        tb.assert_group(torch.stack([
+            PRE[:, PF_BYTESTART] * (s_ - b_) % P,
+            PRE[:, PF_SCONT] * ((NXT[:, S_COL] - 2 * s_ - NXT[:, B_COL]) % P) % P,
+        ], dim=1))
+        byte_pub = [self.pub_base[ci] + t for ci in range(nc) for t in range(self.chain_bits[ci] // 8)]
+        byte_flags = PRE[:, PF_FIXED + nc : PF_FIXED + nc + len(byte_pub)]
+        tb.assert_group(byte_flags * (s_[:, None] - pubs[torch.tensor(byte_pub, device=dev)]) % P)
+
+        # K: norm bindings, per chain [inf, ZI = 1, OX, OY]
+        for ci in range(nc):
+            cf = PRE[:, PF_FIXED + ci]
+            b0 = op_base[ci]
+            inf_pub = pubs[b0 + 2 * NLIMBS]
+            out_x = pubs[b0 + 2 * NLIMBS + 1 : b0 + 3 * NLIMBS + 1]
+            out_y = pubs[b0 + 3 * NLIMBS + 1 : b0 + 4 * NLIMBS + 1]
+            g0 = flags["N0"] * cf % P
+            live = flags_n["N1"] * cf % P * ((1 - inf_pub) % P) % P
+            tb.assert_group(g0 * (inf_ - inf_pub) % P)
+            tb.assert_group(gate(live, slot_limbs(M0R, 0) - ONE_L))
+            tb.assert_group(gate(live, slot_limbs(M2R, 0) - out_x))
+            tb.assert_group(gate(live, slot_limbs(M1R, 1) - out_y))
 
     def eval(self, b):
         """Scalar path (verifier at ζ / debugger) — same order as

@@ -19,13 +19,15 @@ Layout (width 32 = 16 state + 16 S-box aux):
 The digest matches ``pcs.merkle._s_hash_row`` on the same words (tested),
 i.e. the sponge in the AIR is exactly the framework's leaf-hash sponge.
 
-Copied from ``dvt_circuits_tpu/stark/poseidon2_air.py``; the prover runs
-the generic ``eval`` (the JAX ``eval_tensor`` fast path is not ported yet).
+Copied from ``dvt_circuits_tpu/stark/poseidon2_air.py``; ``eval_tensor``,
+the prover's path, is ported to int64 PyTorch ops (the verifier replays the
+scalar ``eval`` at ζ).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..field import babybear as bb
 from ..hash import poseidon2 as p2
@@ -231,6 +233,65 @@ class Poseidon2StreamAir(Air):
             b.assert_zero_all(
                 b.mul(sel_digest, b.sub(x[i], b.public(8 * self.num_chunks + i)))
             )
+
+    def eval_tensor(self, tb):
+        """Tensor path of the prover (``stark/prover.py:TensorBuilder``): the
+        constraints of ``eval`` in its α-power order, each 16-lane group one
+        chain of int64 tensor ops (``dvt_circuits_tpu/stark/poseidon2_air.py:
+        eval_tensor``).  The linear layers are column algebra here, not
+        permutations: plain PyTorch, not kernel K1."""
+        from .. import params
+
+        P = bb.P
+
+        def m(a, b):
+            return a * b % P
+
+        def sub(a, b):
+            return (a - b) % P
+
+        X = tb.local[:, :16]
+        S3 = tb.local[:, 16:32]
+        NXT = tb.next[:, :16]
+        sel_init, sel_ext, sel_int = tb.pre[:, 0:1], tb.pre[:, 1:2], tb.pre[:, 2:3]
+        sel_copy, sel_digest = tb.pre[:, 3:4], tb.pre[:, 4:5]
+        RC = tb.pre[:, 5:21]
+        trans = tb.sel_transition[:, None]
+        first = tb.sel_first[:, None]
+        diag = params.constants(X.device)["poseidon2_diag"]
+
+        # init rows: next = M_E·x
+        tb.assert_group(m(m(sel_init, trans), sub(NXT, p2._external_linear(X))))
+
+        # external rounds
+        XP = (X + RC) % P
+        XP3 = m(m(XP, XP), XP)
+        Y = m(m(S3, S3), XP)
+        tb.assert_group(m(sel_ext, sub(S3, XP3)))
+        tb.assert_group(m(m(sel_ext, trans), sub(NXT, p2._external_linear(Y))))
+
+        # internal rounds: lane 0 S-boxed
+        y0 = m(m(S3[:, 0:1], S3[:, 0:1]), XP[:, 0:1])
+        Y_INT = torch.cat([y0, X[:, 1:]], dim=1)
+        tb.assert_group(m(sel_int, sub(S3[:, 0:1], XP3[:, 0:1])))
+        tb.assert_group(m(m(sel_int, trans), sub(NXT, p2._internal_linear(Y_INT, diag))))
+
+        # copy rows
+        tb.assert_group(m(m(sel_copy, trans), sub(NXT, X)))
+
+        # absorb boundaries
+        for c in range(1, self.num_chunks):
+            sel_abs = m(tb.pre[:, self._FIXED_PRE + (c - 1)][:, None], trans)
+            tb.assert_group(m(sel_abs, sub(NXT[:, :8], tb.publics[8 * c : 8 * c + 8][None, :])))
+            tb.assert_group(m(sel_abs, sub(NXT[:, 8:], X[:, 8:])))
+
+        # first row
+        tb.assert_group(m(first, sub(X[:, :8], tb.publics[0:8][None, :])))
+        tb.assert_group(m(first, X[:, 8:]))
+
+        # digest row
+        dig = tb.publics[8 * self.num_chunks : 8 * self.num_chunks + 8][None, :]
+        tb.assert_group(m(sel_digest, sub(X[:, :8], dig)))
 
 
 def stream_to_words(data: bytes) -> list:

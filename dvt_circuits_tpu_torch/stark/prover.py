@@ -9,10 +9,13 @@ transcript of ``stark/host_prover.py`` / ``stark/fused.py``:
 
 All arrays are int64 standard-form tensors on one device; the Fiat–Shamir
 transcript is the host-side ``DuplexChallenger`` whose permutations run on
-that device.  Constraint evaluation drives each AIR's generic ``eval`` with
-a column algebra (``ProverBuilder``): every builder value is a full LDE
-column, so every AIR works unchanged.  The proof dict is in exactly the
-format of the JAX provers (``stark/fused.py:598-624``).
+that device.  Constraint evaluation takes an AIR's ``eval_tensor`` where it
+has one (``TensorBuilder``: whole (rows, m) constraint groups over row
+chunks of the LDE domain, as the reference's prover does), else drives its
+generic ``eval`` with a column algebra (``ProverBuilder``: every builder
+value is a full LDE column).  No phase copies a whole LDE matrix to read the
+next row.  The proof dict is in exactly the format of the JAX provers
+(``stark/fused.py:598-624``).
 """
 
 from __future__ import annotations
@@ -35,9 +38,20 @@ from .config import StarkConfig
 
 P = bb.P
 
-#: constraints folded per batch: (n_lde, k) products, each reduced before
+#: columns folded per batch: (rows, k, 4) products, each reduced before
 #: the k-term sum (k·p < 2⁶³ for any k below 2³²)
 _FOLD_BATCH = 128
+
+
+def _fold_into(acc: torch.Tensor, mat: torch.Tensor, coeffs: torch.Tensor) -> None:
+    """acc (rows, 4) += Σⱼ coeffsⱼ·mat[:, j] for base-field columns ``mat``
+    (rows or 1, m) and BB4 ``coeffs`` (m, 4), _FOLD_BATCH columns at a time;
+    acc is left reduced."""
+    rows = acc.shape[0]
+    for s in range(0, mat.shape[1], _FOLD_BATCH):
+        part = mat[:, s : s + _FOLD_BATCH].expand(rows, -1)
+        acc += (part[:, :, None] * coeffs[None, s : s + _FOLD_BATCH] % P).sum(dim=1)
+    acc %= P
 
 
 @lru_cache(maxsize=None)
@@ -137,11 +151,8 @@ class ProverBuilder(AirBuilder):
             e.expand(n) if isinstance(e, torch.Tensor) else self._acc.new_full((n,), int(e))
             for e in self._pending
         ]
-        stack = torch.stack(cols, dim=1)  # (n, k)
         coeffs = torch.tensor(self._coeffs, dtype=torch.int64, device=self._acc.device)
-        for c in range(ext.D):
-            self._acc[:, c] += (stack * coeffs[:, c] % P).sum(dim=1)
-        self._acc %= P
+        _fold_into(self._acc, torch.stack(cols, dim=1), coeffs)
         self._pending.clear()
         self._coeffs.clear()
 
@@ -149,6 +160,100 @@ class ProverBuilder(AirBuilder):
         """Σ αⁱ·cᵢ over every constraint → (n_lde, 4)."""
         self._flush()
         return self._acc
+
+
+class _AlphaPowers:
+    """[α⁰, α¹, …] as a (k, 4) tensor that grows on demand (at least
+    doubling; the powers computed on the host, as ``ProverBuilder`` does, and
+    copied over once per growth), shared by the row chunks of one quotient."""
+
+    def __init__(self, alpha, device):
+        self._alpha = tuple(alpha)
+        self._device = device
+        self._host = [ext.S_ONE]
+        self._table = None
+
+    def __call__(self, off: int, m: int) -> torch.Tensor:
+        if self._table is None or self._table.shape[0] < off + m:
+            k = max(off + m, 2 * len(self._host))
+            while len(self._host) < k:
+                self._host.append(ext.s_mul(self._host[-1], self._alpha))
+            self._table = torch.tensor(self._host, dtype=torch.int64, device=self._device)
+        return self._table[off : off + m]
+
+
+class TensorBuilder:
+    """Builder of ``Air.eval_tensor`` over a block of LDE rows: the AIR emits
+    whole (rows, m) constraint tensors (or (rows,) for one constraint), and
+    ``assert_group`` folds each at once into the (rows, 4) accumulator with
+    the next m consecutive α powers: the α-power order is that of ``eval``
+    (the reference concatenates its groups and folds once,
+    ``dvt_circuits_tpu/stark/prover.py:158-186``; the values are the same).
+    Values are int64 standard form; ``publics`` is an int64 tensor on the
+    rows' device."""
+
+    def __init__(self, t, nxt, pre, pre_nxt, publics, sels, alpha_pows: _AlphaPowers):
+        self.local = t
+        self.next = nxt
+        self.pre = pre
+        self.pre_next = pre_nxt
+        self.publics = publics
+        self.sel_first = sels["first"]
+        self.sel_last = sels["last"]
+        self.sel_transition = sels["transition"]
+        self._alpha_pows = alpha_pows
+        self.acc = t.new_zeros((t.shape[0], ext.D))
+        self.count = 0
+
+    def assert_group(self, tensor: torch.Tensor) -> None:
+        if tensor.dim() == 1:
+            tensor = tensor[:, None]
+        m = tensor.shape[1]
+        _fold_into(self.acc, tensor, self._alpha_pows(self.count, m))
+        self.count += m
+
+
+#: bytes of one (rows, trace width) int64 matrix in a row chunk of the tensor
+#: quotient; the widest constraint group keeps a few such temporaries alive
+_QUOTIENT_CHUNK_BYTES = 1 << 30
+
+
+def quotient_chunk_rows(width: int, n_lde: int) -> int:
+    """Rows per chunk of the tensor quotient: the largest power of two whose
+    (rows, width) int64 matrix fits ``_QUOTIENT_CHUNK_BYTES``, at most n_lde."""
+    rows = max(1, _QUOTIENT_CHUNK_BYTES // (8 * max(width, 1)))
+    return min(n_lde, 1 << (rows.bit_length() - 1))
+
+
+def _rows_at(mat: torch.Tensor, r0: int, r1: int, shift: int) -> torch.Tensor:
+    """Rows (r + shift) mod n for r in [r0, r1): a view unless they wrap,
+    else an index gather of those rows alone."""
+    n = mat.shape[0]
+    if r1 + shift <= n:
+        return mat[r0 + shift : r1 + shift]
+    idx = (torch.arange(r0, r1, device=mat.device) + shift) % n
+    return mat.index_select(0, idx)
+
+
+def _tensor_constraints(air: Air, t_lde, p_lde, alpha, publics, tables, blowup: int):
+    """Σ αⁱ·cᵢ over every constraint of ``air.eval_tensor``, evaluated over
+    row chunks of the LDE domain → ((n_lde, 4), constraint count)."""
+    n_lde = t_lde.shape[0]
+    chunk_rows = quotient_chunk_rows(air.width, n_lde)
+    dev = t_lde.device
+    pub = torch.tensor(publics or [0], dtype=torch.int64, device=dev)
+    pows = _AlphaPowers(alpha, dev)
+    acc = t_lde.new_empty((n_lde, ext.D))
+    count = None
+    for r0 in range(0, n_lde, chunk_rows):
+        r1 = min(n_lde, r0 + chunk_rows)
+        sels = {k: tables[k][r0:r1] for k in ("first", "last", "transition")}
+        tb = TensorBuilder(t_lde[r0:r1], _rows_at(t_lde, r0, r1, blowup), p_lde[r0:r1],
+                           _rows_at(p_lde, r0, r1, blowup), pub, sels, pows)
+        air.eval_tensor(tb)
+        acc[r0:r1] = tb.acc
+        count = tb.count
+    return acc, count
 
 
 # ---------------------------------------------------------------------------
@@ -165,21 +270,28 @@ def quotient_body(air: Air, t_lde, p_lde, alpha, publics, tables, log_n: int,
                   config: StarkConfig):
     """Constraint quotient and its chunked commitment matrix.
 
-    Returns (q_matrix (n_lde, 4·blowup), q_col_coeffs (n, 4·blowup),
-    constraint count)."""
+    An AIR with ``eval_tensor`` is evaluated through ``TensorBuilder`` over
+    row chunks of ``quotient_chunk_rows`` rows (the result does not depend
+    on it); any other AIR drives its generic ``eval`` through
+    ``ProverBuilder``.  Returns (q_matrix (n_lde, 4·blowup), q_col_coeffs
+    (n, 4·blowup), constraint count)."""
     n = 1 << log_n
     roll = config.blowup
-    nxt = torch.roll(t_lde, -roll, dims=0)
-    pre_nxt = torch.roll(p_lde, -roll, dims=0) if air.preprocessed_width else p_lde
-    builder = ProverBuilder(t_lde, nxt, p_lde, pre_nxt, publics, tables, alpha)
-    air.eval(builder)
-    quotient = ext.mul_base(builder.finalize(), tables["zh_inv"])  # (n_lde, 4)
+    if getattr(air, "eval_tensor", None):
+        folded, count = _tensor_constraints(air, t_lde, p_lde, alpha, publics, tables, roll)
+    else:
+        nxt = torch.roll(t_lde, -roll, dims=0)
+        pre_nxt = torch.roll(p_lde, -roll, dims=0) if air.preprocessed_width else p_lde
+        builder = ProverBuilder(t_lde, nxt, p_lde, pre_nxt, publics, tables, alpha)
+        air.eval(builder)
+        folded, count = builder.finalize(), builder.count
+    quotient = ext.mul_base(folded, tables["zh_inv"])  # (n_lde, 4)
     q_coeffs = coset_evals_to_coeffs(quotient, config.shift)
     # chunk k = coefficients [k·n, (k+1)·n) of the quotient, one BB4 column
     # group each; the chunk LDEs are independent columns of one transform
     q_col_coeffs = torch.cat([q_coeffs[k * n : (k + 1) * n] for k in range(config.blowup)], dim=1)
     q_matrix = coeffs_to_coset_evals(q_col_coeffs, config.log_blowup, config.shift)
-    return q_matrix, q_col_coeffs, builder.count
+    return q_matrix, q_col_coeffs, count
 
 
 def _eval_cols_at(coeffs: torch.Tensor, point) -> np.ndarray:
@@ -195,14 +307,16 @@ def openings_body(air: Air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n: int,
                   config: StarkConfig) -> dict:
     """Openings of trace, quotient and preprocessed columns at ζ and g·ζ."""
     n = 1 << log_n
-    t_coeffs = coset_evals_to_coeffs(t_lde, config.shift)[:n]
+    # the first n coefficients alone stay alive (the transform's buffer is
+    # as large as the LDE)
+    t_coeffs = coset_evals_to_coeffs(t_lde, config.shift)[:n].clone()
     out = {
         "t_zeta": _eval_cols_at(t_coeffs, zeta),
         "t_gzeta": _eval_cols_at(t_coeffs, gzeta),
         "q_zeta": _eval_cols_at(q_col_coeffs, zeta),
     }
     if air.preprocessed_width:
-        p_coeffs = coset_evals_to_coeffs(p_lde, config.shift)[:n]
+        p_coeffs = coset_evals_to_coeffs(p_lde, config.shift)[:n].clone()
         out["p_zeta"] = _eval_cols_at(p_coeffs, zeta)
         out["p_gzeta"] = _eval_cols_at(p_coeffs, gzeta)
     return out
@@ -248,11 +362,10 @@ def deep_body(air: Air, t_lde, p_lde, q_matrix, opened: dict, zeta, gzeta, gamma
         o_fold = t_lde.new_zeros((ext.D,))
         for mat, vals, off in parts:
             coeff = gp[off : off + mat.shape[1]]  # (m, 4)
-            for c in range(ext.D):
-                num[:, c] += (mat * coeff[:, c] % P).sum(dim=1)
+            _fold_into(num, mat, coeff)
             o = torch.as_tensor(vals.astype(np.int64), device=dev)
             o_fold += ext.mul(coeff, o).sum(dim=0)
-        num = ext.sub(num % P, o_fold % P)
+        num = ext.sub(num, o_fold % P)
         return ext.mul(num, inv_den)
 
     z_parts, gz_parts = [], []

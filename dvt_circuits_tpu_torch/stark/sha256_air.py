@@ -29,8 +29,9 @@ Max constraint degree: selector · XOR3/Maj = 4 (fits the default blowup-4
 budget of 5).  The verifier must range-check public limbs < 2^16 (done in
 ``check_publics``): limb equalities are canonical only for in-range publics.
 
-Copied from ``dvt_circuits_tpu/stark/sha256_air.py``; the prover runs the
-generic ``eval`` (the JAX ``eval_tensor`` fast path is not ported yet).
+Copied from ``dvt_circuits_tpu/stark/sha256_air.py``; ``eval_tensor``, the
+prover's path, is ported to int64 PyTorch ops (the verifier replays the
+scalar ``eval`` at ζ).
 """
 
 from __future__ import annotations
@@ -551,6 +552,190 @@ class Sha256Air(Air):
             doff = self.digest_offset(mi)
             for j in range(16):
                 b.assert_zero_all(b.mul(sel_dig, b.sub(iv_l[j], b.public(doff + j))))
+
+    def eval_tensor(self, tb):
+        """Tensor path of the prover (``stark/prover.py:TensorBuilder``): the
+        constraints of ``eval`` in its α-power order, with the bitwise register
+        operations as whole-(rows, 32) int64 tensor ops (rotations are rolls
+        along the bit axis), as ``dvt_circuits_tpu/stark/sha256_air.py:
+        eval_tensor``.  The verifier replays the scalar ``eval`` at ζ."""
+        import torch
+
+        from ..field.babybear import P
+
+        X, NXT, PRE = tb.local, tb.next, tb.pre
+        n = X.shape[0]
+
+        def m(a, b):
+            return a * b % P
+
+        def sub(a, b):
+            return (a - b) % P
+
+        def add(*xs):
+            acc = xs[0]
+            for x in xs[1:]:
+                acc = acc + x
+            return acc % P
+
+        # limb weights 2^(i mod 16): a product is below 2^47, 16 of them 2^51
+        weights = torch.tensor([1 << (i % 16) for i in range(32)], dtype=torch.int64,
+                               device=X.device)
+
+        def wsum_pair(bits32):
+            prods = bits32 * weights
+            return prods[:, :16].sum(dim=1) % P, prods[:, 16:].sum(dim=1) % P
+
+        def xor3(x, y, z):
+            xy = m(x, y)
+            return (x + y + z - 2 * (xy + m(y, z) + m(z, x)) + 4 * m(xy, z)) % P
+
+        sel_round, sel_bound, sel_digest = PRE[:, 0], PRE[:, 1], PRE[:, 2]
+        k_lo, k_hi = PRE[:, 3], PRE[:, 4]
+        sel_rb = add(sel_round, sel_bound)
+        sel_active = add(sel_rb, sel_digest)
+        trans = tb.sel_transition
+
+        A_, B_, C_ = X[:, A : A + 32], X[:, B : B + 32], X[:, C : C + 32]
+        E_, F_, G_ = X[:, E : E + 32], X[:, F : F + 32], X[:, G : G + 32]
+        W1 = X[:, W1B : W1B + 32]
+        W14 = X[:, W14B : W14B + 32]
+        IV_T = X[:, IV : IV + 16]
+
+        # 1. bitness (the scalar loops' column ranges and selectors; CE(6) ‖
+        #    CA(6) ‖ CW(4) are contiguous)
+        for col, width, sel in ((A, 192, sel_active), (W1B, 64, sel_rb), (CE, 16, sel_rb),
+                                (CF, 12, sel_bound)):
+            bits = X[:, col : col + width]
+            tb.assert_group(m(sel[:, None], m(bits, bits - 1)))
+
+        # 2. w1/w14 bit decompositions match the window limbs
+        w1_lo, w1_hi = wsum_pair(W1)
+        w14_lo, w14_hi = wsum_pair(W14)
+        tb.assert_group(m(sel_rb[:, None], sub(torch.stack([w1_lo, w1_hi, w14_lo, w14_hi], dim=1),
+                                               X[:, [WIN + 2, WIN + 3, WIN + 28, WIN + 29]])))
+
+        # 3. round mixers: rotations are rolls along the bit axis
+        def roll(t, k):
+            return torch.roll(t, -k, dims=1)
+
+        S1 = xor3(roll(E_, 6), roll(E_, 11), roll(E_, 25))
+        CH = add(m(E_, F_), m(1 - E_, G_))
+        S0 = xor3(roll(A_, 2), roll(A_, 13), roll(A_, 22))
+        AB = m(A_, B_)
+        MAJ = (AB + m(A_, C_) + m(B_, C_) - 2 * m(AB, C_)) % P
+        s1_lo, s1_hi = wsum_pair(S1)
+        ch_lo, ch_hi = wsum_pair(CH)
+        s0_lo, s0_hi = wsum_pair(S0)
+        mj_lo, mj_hi = wsum_pair(MAJ)
+        s0mj_lo, s0mj_hi = add(s0_lo, mj_lo), add(s0_hi, mj_hi)
+        t1_lo = add(X[:, H_LO], s1_lo, ch_lo, k_lo, X[:, WIN + 0])
+        t1_hi = add(X[:, H_HI], s1_hi, ch_hi, k_hi, X[:, WIN + 1])
+
+        def carry3(base):
+            return (X[:, base] + 2 * X[:, base + 1] + 4 * X[:, base + 2]) % P
+
+        ce_l, ce_h = carry3(CE), carry3(CE + 3)
+        ca_l, ca_h = carry3(CA), carry3(CA + 3)
+
+        n_a_lo, n_a_hi = wsum_pair(NXT[:, A : A + 32])
+        n_e_lo, n_e_hi = wsum_pair(NXT[:, E : E + 32])
+        a_lo, a_hi = wsum_pair(A_)
+        b_lo, b_hi = wsum_pair(B_)
+        c_lo, c_hi = wsum_pair(C_)
+        e_lo, e_hi = wsum_pair(E_)
+        f_lo, f_hi = wsum_pair(F_)
+        g_lo, g_hi = wsum_pair(G_)
+        sr_t = m(sel_round, trans)
+        sb_t = m(sel_bound, trans)
+
+        def add_eq_group(sel_t, out_lo, out_hi, cl, ch_, parts_lo, parts_hi):
+            """out + carry·2^16 = Σ parts, per limb (hi receives carry_lo)."""
+            lo = out_lo + (1 << 16) * cl - sum(parts_lo)
+            hi = out_hi + (1 << 16) * ch_ - sum(parts_hi) - cl
+            tb.assert_group(m(sel_t[:, None], torch.stack([lo, hi], dim=1) % P))
+
+        add_eq_group(sr_t, n_e_lo, n_e_hi, ce_l, ce_h,
+                     [X[:, D_LO], t1_lo], [X[:, D_HI], t1_hi])
+        add_eq_group(sr_t, n_a_lo, n_a_hi, ca_l, ca_h,
+                     [t1_lo, s0mj_lo], [t1_hi, s0mj_hi])
+        add_eq_group(sb_t, n_e_lo, n_e_hi, ce_l, ce_h,
+                     [X[:, D_LO], t1_lo, IV_T[:, 8]], [X[:, D_HI], t1_hi, IV_T[:, 9]])
+        add_eq_group(sb_t, n_a_lo, n_a_hi, ca_l, ca_h,
+                     [t1_lo, s0mj_lo, IV_T[:, 0]], [t1_hi, s0mj_hi, IV_T[:, 1]])
+
+        # register copies (B,C,D,F,G,H), 4 constraints per copy in eval order
+        nb_lo, nb_hi = wsum_pair(NXT[:, B : B + 32])
+        nc_lo, nc_hi = wsum_pair(NXT[:, C : C + 32])
+        nf_lo, nf_hi = wsum_pair(NXT[:, F : F + 32])
+        ng_lo, ng_hi = wsum_pair(NXT[:, G : G + 32])
+        copies = [
+            (nb_lo, nb_hi, a_lo, a_hi, 2, 0),
+            (nc_lo, nc_hi, b_lo, b_hi, 4, 1),
+            (NXT[:, D_LO], NXT[:, D_HI], c_lo, c_hi, 6, 2),
+            (nf_lo, nf_hi, e_lo, e_hi, 10, 3),
+            (ng_lo, ng_hi, f_lo, f_hi, 12, 4),
+            (NXT[:, H_LO], NXT[:, H_HI], g_lo, g_hi, 14, 5),
+        ]
+        for n_lo, n_hi, s_lo, s_hi, iv_base, cfi in copies:
+            cf_lo, cf_hi = X[:, CF + 2 * cfi], X[:, CF + 2 * cfi + 1]
+            tb.assert_group(torch.stack([
+                m(sr_t, n_lo - s_lo),
+                m(sr_t, n_hi - s_hi),
+                m(sb_t, (n_lo + (1 << 16) * cf_lo - s_lo - IV_T[:, iv_base]) % P),
+                m(sb_t, (n_hi + (1 << 16) * cf_hi - s_hi - IV_T[:, iv_base + 1] - cf_lo) % P),
+            ], dim=1))
+
+        # iv: copied on round rows / set to the new state on boundary rows,
+        # interleaved per limb as the scalar loop's (round, bound) pairs
+        next_limbs = torch.stack(
+            [n_a_lo, n_a_hi, nb_lo, nb_hi, nc_lo, nc_hi, NXT[:, D_LO], NXT[:, D_HI],
+             n_e_lo, n_e_hi, nf_lo, nf_hi, ng_lo, ng_hi, NXT[:, H_LO], NXT[:, H_HI]], dim=1)
+        nxt_iv = NXT[:, IV : IV + 16]
+        rg = m(sr_t[:, None], nxt_iv - IV_T)
+        bg = m(sb_t[:, None], nxt_iv - next_limbs)
+        tb.assert_group(torch.stack([rg, bg], dim=2).reshape(n, 32))
+
+        # 4. schedule: the window shifts one word (15 words × 2 limbs)
+        tb.assert_group(m(sr_t[:, None], NXT[:, WIN : WIN + 30] - X[:, WIN + 2 : WIN + 32]))
+        SIG0 = xor3(roll(W1, 7), roll(W1, 18), torch.cat([W1[:, 3:], W1.new_zeros((n, 3))], dim=1))
+        SIG1 = xor3(roll(W14, 17), roll(W14, 19),
+                    torch.cat([W14[:, 10:], W14.new_zeros((n, 10))], dim=1))
+        sg0_lo, sg0_hi = wsum_pair(SIG0)
+        sg1_lo, sg1_hi = wsum_pair(SIG1)
+        cw_l = (X[:, CW] + 2 * X[:, CW + 1]) % P
+        cw_h = (X[:, CW + 2] + 2 * X[:, CW + 3]) % P
+        add_eq_group(sr_t, NXT[:, WIN + 30], NXT[:, WIN + 31], cw_l, cw_h,
+                     [X[:, WIN + 0], X[:, WIN + 18], sg0_lo, sg1_lo],
+                     [X[:, WIN + 1], X[:, WIN + 19], sg0_hi, sg1_hi])
+
+        # 5. window binding: each block's first row vs its public words
+        gb = 0
+        for mi, b_m in enumerate(self.block_counts):
+            base_pub = self.public_offset(mi)
+            for blk in range(b_m):
+                sel_blk = PRE[:, self._FIXED_PRE + gb]
+                pubs = tb.publics[base_pub + 32 * blk : base_pub + 32 * blk + 32][None, :]
+                tb.assert_group(m(sel_blk[:, None], X[:, WIN : WIN + 32] - pubs))
+                gb += 1
+
+        # 6. message-start rows: state = H0, iv = H0 (reg_lo, reg_hi, iv_lo,
+        #    iv_hi per register, the scalar loop's order)
+        sel_start = PRE[:, 5]
+        reg_limbs = [(a_lo, a_hi), (b_lo, b_hi), (c_lo, c_hi), (X[:, D_LO], X[:, D_HI]),
+                     (e_lo, e_hi), (f_lo, f_hi), (g_lo, g_hi), (X[:, H_LO], X[:, H_HI])]
+        for ri in range(8):
+            lo_c, hi_c = _u32_limbs(int(_H0[ri]))
+            vals = torch.stack([reg_limbs[ri][0], reg_limbs[ri][1], IV_T[:, 2 * ri],
+                                IV_T[:, 2 * ri + 1]], dim=1)
+            want = torch.tensor([lo_c, hi_c, lo_c, hi_c], dtype=torch.int64, device=X.device)
+            tb.assert_group(m(sel_start[:, None], vals - want))
+
+        # 7. digest rows, per message
+        for mi in range(self.num_messages):
+            sel_dig = PRE[:, self._FIXED_PRE + self.total_blocks + mi]
+            doff = self.digest_offset(mi)
+            tb.assert_group(m(sel_dig[:, None], IV_T - tb.publics[doff : doff + 16][None, :]))
 
     # -- helpers ---------------------------------------------------------------
 
