@@ -9,10 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every kernel from ``dvt_circuits_tpu_torch/csrc`` (one nvcc per
-     source, in parallel); print K1's register report and each K1 kernel's
-     static integer instructions in the SASS (a diagnostic of the design); count
-     K2's and K3's (K3 must hold at least 512 IMAD per element: its chain
-     is not folded);
+     source, in parallel); print K1's register report and each K1 and K2
+     kernel's static integer instructions in the SASS (a diagnostic of the
+     design); count K3's (K3 must hold at least 512 IMAD per element: its
+     chain is not folded);
   3. K1a (the Poseidon2 permutation): kernel vs plain PyTorch on 2^20
      random states plus all-0 / all-(p−1) rows and at the prover's shapes,
      bit-equal, with 1 and 4 lanes per state; 16 rows vs the scalar
@@ -22,25 +22,42 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      leaves; K1d (the proof-of-work search) on 2^16 candidates at pending
      positions 0, 3 and 7: each bit-equal to its plain version, then timed
      with 1 and 4 lanes per state against the plain version and the bound;
-  4. K2 (Keccak-f[1600]): kernel vs plain on 2^16 states, bit-equal;
-     Keccak-256 / SHA3-256 known digests; timings;
+  4. K2 (Keccak-f[1600]): kernel vs plain on 2^18 states (its path's
+     batch), bit-equal; K2b (the sponge, one launch a batch) vs plain at 1
+     message of 1 block and at 2^12 messages of 1 and 3 blocks, bit-equal;
+     Keccak-256 / SHA3-256 known digests; where one-state time goes (CUDA
+     events, the wrapper's host time, the kernel's device time from a
+     CUDA-graph replay of 200 calls that must hold 200 kernel nodes) for
+     K2, K2b and the fingerprint as the CLI runs it; K2 through its old
+     launch path and the fingerprint's old per-block route against the new
+     ones, in turns; timings;
   5. K3 (the multiply-add probe): kernel vs plain on (16, 2^18) random
      values plus rows of 0, 1 and 2^32−1, bit-equal; timings; its IMAD rate;
   6. the pre-curve bad-share path: ``prove_circuit("bad-share")`` at
      ``DEFAULT_CONFIG`` for a 7-of-10 committee whose seed exchange names a
      destination outside the committee (the guest slashes before the
      curve check), cold then warm, with launch counts; the container's
-     fingerprint through K2; Merkle openings re-checked with the scalar
+     fingerprint through one K2b launch; Merkle openings re-checked with the scalar
      permutation; the same proof on the CPU (plain path) must give equal
      container bytes without ``timing`` (the CLI runs in phase 12);
   7. the probe path: ``probe_vpu.main()`` in-process (K3 launches) and
      ``python -m dvt_circuits_tpu_torch.probe_vpu`` as a subprocess;
+  7b. the keccak-f path: ``keccak_f1600`` on 2^18 states, as the
+     reference's bench calls its permutation (K2's launches);
   8. the curve paths at full width, 7-of-10: the curve-fault bad-share
      (tables stream, sha256, g1mul with chains 256 + 6×32) and
      bad-partial-key (6 chains of 32 bits), cold then warm (once with each
      prover phase's time and device memory), profiled; every chain's result
      equals the host ``g1_mul``; openings re-checked; the port's own strict
      verifier on the card says ``curve-bound+sig``;
+  8b. bad-encrypted-share 7-of-10 (tables stream, sha256, chacha20 2^7 x
+     1080 for a 178-byte ciphertext), cold then warm (once with each prover
+     phase's time and device memory), profiled; the keystream equals the
+     host cipher's; openings re-checked; the port's strict verifier on the
+     card says ``hash-bound``; the CLI ``prove`` and ``verify --show-report``
+     in-process, each fingerprint one K2b launch; the ChaCha20 quotient
+     through ``eval_tensor`` and the generic ``eval``, bit-equal, timed,
+     with its launches;
   9. finalization 7-of-10 the same way (its g1mul table 2^16 × 4314, LDE
      2^18), with its device memory peak, unprofiled;
  10. where the time of one g1mul table goes (the prover's phases timed
@@ -48,8 +65,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      quotient both through ``eval_tensor`` and the generic ``eval``:
      bit-equal, each timed, with its launches (under 10,000 for the first);
  11. GPU == CPU at the CPU tests' inputs: the 2-of-3 curve fault,
-     bad-partial-key and finalization at ``TEST_CONFIG`` give equal
-     container bytes;
+     bad-partial-key, bad-encrypted-share and finalization at
+     ``TEST_CONFIG`` give equal container bytes;
  12. the CLI ``prove`` of the 7-of-10 curve fault and ``verify
      --show-report`` of its file, as subprocesses;
  13. one ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -65,9 +82,10 @@ trees it committed plus its batched opening checks (one launch each).
 Randomness comes from numpy with fixed seeds.  Bounds:
 bytes each kernel must move over 3.35 TB/s, and its integer work over the
 int32 instruction rates (see ``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the
-larger of the two.  K1's work is the permutation's, counted from its
-definition (``P2_IMAD``, ``P2_INSTR``) times the permutations of the call,
-the same for every design; K2's and K3's come from their SASS
+larger of the two.  K1's and K2's work is the permutation's, counted from
+its definition (``P2_IMAD``, ``P2_INSTR``; ``K2_INSTR``, and
+``K2B_ABSORB_INSTR`` per absorbed block) times the permutations of the
+call, the same for every design; K3's comes from its SASS
 (``kernel_work``).  No call can take less than a launch, so each record
 also carries ``launch_floor_ms``, the measured time of the cheapest launch
 (``launch_floor_ms()``), and ``floor_bound_ms``, the larger of the two.
@@ -77,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import re
 import subprocess
@@ -115,10 +134,27 @@ P2_DIAG_PRODUCTS = 13 * 16
 P2_ADDS = 9 * (4 * 8 + 12 + 16) + 13 * (15 + 16) + 8 * 16 + 13
 P2_IMAD = 3 * P2_SBOX_PRODUCTS
 P2_INSTR = P2_IMAD + P2_DIAG_PRODUCTS + P2_ADDS
+#: Keccak-f[1600] work per permutation as its definition counts it, in 32-bit
+#: instructions (Hopper has no 64-bit logic unit), whatever the design: per
+#: round theta 80 (5 column parities at 2 three-input LOP3 per 32-bit half,
+#: 5 rotations by one at 2 funnel SHF, 25 lane XORs at one LOP3 per half),
+#: rho 48 (24 rotations at 2 SHF), chi 50 (a ^ (~b & c) is one LOP3 per
+#: half), iota 2; 24 rounds
+K2_THETA = 5 * 2 * 2 + 5 * 2 + 25 * 2
+K2_RHO = 24 * 2
+K2_CHI = 25 * 2
+K2_IOTA = 2
+K2_INSTR = 24 * (K2_THETA + K2_RHO + K2_CHI + K2_IOTA)
+#: K2b absorbs each rate block before its permutation: 17 lane XORs at one
+#: LOP3 per half
+K2B_ABSORB_INSTR = 17 * 2
 #: bytes each permutation must move: K1a 16 int64 words in and out, K2 25;
-#: K3 one int64 in and out per element
+#: K2b a rate block of 17 lanes in per block and 4 digest lanes out per
+#: message; K3 one int64 in and out per element
 K1_BYTES_PER_PERM = 2 * 16 * 8
 K2_BYTES_PER_PERM = 2 * 25 * 8
+K2B_BYTES_PER_BLOCK = 17 * 8
+K2B_BYTES_PER_DIGEST = 4 * 8
 K3_BYTES_PER_ELEM = 2 * 8
 #: integer ALU opcodes counted as work in the compiled kernels
 _INT_OPCODES = {"IMAD", "IADD3", "ISETP", "VIADD", "SHF", "LOP3", "SEL", "IMNMX", "LEA", "PRMT"}
@@ -187,27 +223,25 @@ def _ints(ops) -> int:
 
 
 def kernel_work(libs: dict) -> dict:
-    """K2's and K3's integer instructions per permutation or element, as
-    (all, IMAD), from the compiled SASS: K3 is straight-line code (one
-    thread per element), so its static count is its work; K2 loops over 24
-    rounds, so its work is 24 × the LOP3 and SHF of the round body (its
-    only logic instructions).  K1's bound does not come from here (see
-    ``P2_INSTR``): its kernels' static counts are printed as a diagnostic of
-    the design."""
+    """K3's integer instructions per element, as (all, IMAD), from the
+    compiled SASS: K3 is straight-line code (one thread per element), so its
+    static count is its work.  K1's and K2's bounds do not come from here
+    (see ``P2_INSTR`` and ``K2_INSTR``): their kernels' static counts are
+    printed as a diagnostic of the design."""
     for name, ops in sorted(_sass_functions(libs["poseidon2"]).items()):
         kernel = re.search(r"(\w+_kernel)ILi(\d)E", name)
         label = f"{kernel.group(1)}<lanes={kernel.group(2)}>" if kernel else name
         _log(f"K1 SASS {label}: {sum(ops.values())} instructions, {_ints(ops)} integer, "
              f"{ops.get('IMAD', 0)} IMAD (static count: one full and one partial round body)")
-    k2 = _sass_opcodes(libs["keccak"])
+    for name, ops in sorted(_sass_functions(libs["keccak"]).items()):
+        _log(f"K2 SASS {name}: LOP3 + SHF {ops.get('LOP3', 0) + ops.get('SHF', 0)} (static "
+             f"count: one round body; Keccak-f's definition counts "
+             f"{K2_INSTR // 24} a round), {_ints(ops)} integer instructions in all")
     k3 = _sass_opcodes(libs["mulchain"])
-    work = {
-        "keccak_f1600": (24 * (k2.get("LOP3", 0) + k2.get("SHF", 0)), 0),
-        "mulchain": (_ints(k3), k3.get("IMAD", 0)),
-    }
-    _log(f"SASS integer instructions (all, IMAD) per permutation or element: {work}")
-    if min(total for total, _ in work.values()) == 0:
-        raise AssertionError("no integer instructions found in the kernels' SASS")
+    work = {"mulchain": (_ints(k3), k3.get("IMAD", 0))}
+    _log(f"SASS integer instructions (all, IMAD) per element: {work}")
+    if work["mulchain"][0] == 0:
+        raise AssertionError("no integer instructions found in K3's SASS")
     from dvt_circuits_tpu_torch.probe_vpu import CHAIN
 
     if work["mulchain"][1] < CHAIN:
@@ -437,14 +471,151 @@ def phase_grind(p2):
     return _k1_record("poseidon2_grind", (count, 16), 0, ms, plain_ms, bound)
 
 
-def phase_keccak(kk, work):
+def _k2_record(name: str, shape, err: int, ms: float, plain_ms: float, bound) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "dvt_circuits_tpu_torch/csrc/keccak.cu",
+        "replaces": "dvt_circuits_tpu/hash/keccak.py:105",
+        "shape": list(shape),
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+    }
+
+
+def k2_bound_ms(perms: int, absorbed_blocks: int, bytes_moved: int):
+    """K2's and K2b's bound: ``perms`` permutations of Keccak-f's own work and
+    ``absorbed_blocks`` rate-block absorbs."""
+    return _bound_ms(1, (perms * K2_INSTR + absorbed_blocks * K2B_ABSORB_INSTR, 0), bytes_moved)
+
+
+def _host_us_per_call(fn, calls: int) -> float:
+    """Host time per call of ``fn`` (perf_counter over ``calls`` calls,
+    synchronized once after them): what the wrapper costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
+#: ``CUgraphNodeType`` of a kernel node (CUDA driver API)
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _graph_node_types(graph) -> list:
+    """The node types of a captured CUDA graph (``keep_graph=True``), read
+    through the driver API."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    return types
+
+
+def _graph_device_us(fn, calls: int) -> float:
+    """Device time per call of ``fn``, a call that must launch exactly one
+    kernel and nothing else: ``calls`` calls captured in one CUDA graph
+    (checked to hold ``calls`` kernel nodes and no other node), the graph
+    replayed between CUDA events, µs per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    types = _graph_node_types(graph)
+    if types != [_CU_GRAPH_NODE_TYPE_KERNEL] * calls:
+        kinds = {t: types.count(t) for t in set(types)}
+        raise AssertionError(f"{calls} calls captured {len(types)} graph nodes by type {kinds}, "
+                             f"not {calls} kernel nodes")
+    graph.instantiate()
+    return _time_ms(graph.replay, 20, warmup=2) / calls * 1e3
+
+
+def _k2_old_call(kk, state):
+    """K2 through its launch path before the redesign: a
+    ``torch.cuda.Stream`` object built per call and an unconditional
+    ``.contiguous()``."""
+    from dvt_circuits_tpu_torch import kernels
+
+    state = state.contiguous()
+    out = torch.empty_like(state)
+    kernels.check(kk._entry_points()[0](state.data_ptr(), out.data_ptr(), state.shape[0],
+                                        torch.cuda.current_stream(state.device).cuda_stream),
+                  "keccak kernel launch")
+    return out
+
+
+def _fingerprint_old(kk, messages) -> list:
+    """Keccak-256 as the fingerprint ran before K2b: the padded blocks
+    widened to 25 lanes, a zero state, then per block one XOR and one K2
+    launch (K2 as it was, ``_k2_old_call``), and the digest lanes sliced
+    and copied back."""
+    packed = kk._pack(messages, 0x01)
+    full = np.zeros(packed.shape[:2] + (25,), dtype=np.int64)
+    full[..., : kk.RATE_LANES] = packed
+    blocks = torch.as_tensor(full, device="cuda")
+    state = torch.zeros((len(messages), 25), dtype=torch.int64, device="cuda")
+    for blk in blocks:
+        state = _k2_old_call(kk, state ^ blk)
+    return [row.tobytes() for row in state[:, :4].cpu().numpy().astype("<i8")]
+
+
+#: the batch K2's only path runs (``phase_keccak_f_path``)
+K2_PATH_STATES = 1 << 18
+
+
+def phase_keccak(kk, floor_ms: float):
+    """K2 (the permutation) and K2b (the sponge): each bit-equal to its plain
+    version; where a one-state call's time goes (the kernel's device time
+    from a CUDA-graph replay, the wrapper's host time, and the fingerprint
+    as the CLI runs it); K2 through its old launch path against the new one,
+    and the fingerprint before and after K2b, in turns, with each one's
+    share of the bound with the launch floor.  Returns (K2 record at the
+    batch of its path, K2b record at the fingerprint's one message)."""
     rng = np.random.default_rng(SEED + 1)
-    y = torch.as_tensor(
-        rng.integers(-(1 << 63), (1 << 63) - 1, (1 << 16, 25), dtype=np.int64), device="cuda"
-    )
-    k2_err = _max_abs_err_u64(kk.keccak_f1600(y), kk.keccak_f1600_plain(y))
+    y = torch.as_tensor(rng.integers(-(1 << 63), (1 << 63) - 1, (K2_PATH_STATES, 25),
+                                     dtype=np.int64), device="cuda")
+    y_plain = kk.keccak_f1600_plain(y)
+    k2_err = _max_abs_err_u64(kk.keccak_f1600(y), y_plain)
     if k2_err:
-        raise AssertionError("K2 disagrees with keccak_f1600_plain on 2^16 states")
+        raise AssertionError("K2 disagrees with keccak_f1600_plain on 2^18 states")
+    # K2b at the fingerprint's shape (one message, one block) and at 2^12
+    # messages of 1 and 3 blocks
+    k2b_err = 0
+    sponge_in = {}
+    for n_blocks, n in ((1, 1), (1, 1 << 12), (3, 1 << 12)):
+        blocks = torch.as_tensor(rng.integers(-(1 << 63), (1 << 63) - 1, (n_blocks, n, 17),
+                                              dtype=np.int64), device="cuda")
+        k2b_err = max(k2b_err, _max_abs_err_u64(kk.keccak_sponge(blocks),
+                                                kk.keccak_sponge_plain(blocks)))
+        if k2b_err:
+            raise AssertionError(f"K2b disagrees with keccak_sponge_plain at {n_blocks} x {n}")
+        sponge_in[n_blocks, n] = blocks
     known = {
         b"": "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470",
         b"abc": "4e03657aea45a94fc7d47ba826c8d667c0d1e6e33a64a036ec44f58fa12d6c45",
@@ -455,32 +626,104 @@ def phase_keccak(kk, work):
     msgs = [bytes(rng.integers(0, 256, 200, dtype=np.uint8)) for _ in range(8)]
     if kk.sha3_256_batch(msgs) != [hashlib.sha3_256(m).digest() for m in msgs]:
         raise AssertionError("SHA3-256 batch disagrees with hashlib")
-    _log("K2 keccak: bit-equal to keccak_f1600_plain on 2^16 states; known digests match")
-    rows = []
-    for n, reps in ((1, 200), (1 << 16, 50)):
-        ys = y[:n].contiguous()
-        ms = _time_ms(lambda: kk.keccak_f1600(ys), reps)
-        plain_ms = _time_ms(lambda: kk.keccak_f1600_plain(ys), max(2, reps // 20), warmup=1)
-        bound, by = _bound_ms(n, work, n * K2_BYTES_PER_PERM)
-        rows.append((n, ms, plain_ms, bound, by))
-        _log(f"K2 N={n:>8}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-             f"bound {bound:.9f} ms ({by})")
-    # the record carries the prover's shape: one state per fingerprint
-    n, ms, plain_ms, bound, by = rows[0]
-    return {
-        "name": "keccak_f1600",
-        "route": "cuda",
-        "source": "dvt_circuits_tpu_torch/csrc/keccak.cu",
-        "replaces": "dvt_circuits_tpu/hash/keccak.py:105",
-        "shape": [n, 25],
-        "launches": None,
-        "max_abs_err": k2_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": None,
-    }
+    digest = [hashlib.sha256(b"dvt-chip-smoke/artifact").digest()]
+    if _fingerprint_old(kk, digest) != kk.keccak256_batch(digest):
+        raise AssertionError("the fingerprint before K2b differs from the one through K2b")
+    _log("K2 keccak_f1600: bit-equal to keccak_f1600_plain on 2^18 states; K2b keccak_sponge: "
+         "bit-equal to keccak_sponge_plain at 1 x 1, 1 x 2^12 and 3 x 2^12 (blocks x messages); "
+         "known digests match")
+
+    one = y[:1].contiguous()
+    blocks1 = sponge_in[1, 1]
+    bound_one = k2_bound_ms(1, 0, K2_BYTES_PER_PERM)
+    bound_msg = k2_bound_ms(1, 1, K2B_BYTES_PER_BLOCK + K2B_BYTES_PER_DIGEST)
+    kernel_calls = {"K2 one state": (lambda: kk.keccak_f1600(one), bound_one),
+                    "K2b one message of one block": (lambda: kk.keccak_sponge(blocks1),
+                                                     bound_msg)}
+    fingerprint = "fingerprint keccak256_batch([32 bytes])"
+    calls = {**kernel_calls, fingerprint: (lambda: kk.keccak256_batch(digest), bound_msg)}
+    # K2 as it was, and the fingerprint's per-block route before K2b
+    olds = {"K2 one state": lambda: _k2_old_call(kk, one),
+            fingerprint: lambda: _fingerprint_old(kk, digest)}
+
+    # every CUDA-event and host-clock time before the profile at the end: in
+    # one run on the H100 the launches after a profiler session ran slower
+    # (one-state K2 from 17.9 to 24 us a call)
+    ms, host_us, old_new_ms = {}, {}, {}
+    for what, (fn, _) in calls.items():
+        ms[what] = _time_ms(fn, 500, warmup=20)
+        host_us[what] = _host_us_per_call(fn, 500)
+    device_us = {what: _graph_device_us(fn, 200) for what, (fn, _) in kernel_calls.items()}
+    # old against new, in turns (old, new, new, old)
+    for what, old in olds.items():
+        t = {"old": [], "new": []}
+        for label in ("old", "new", "new", "old"):
+            t[label].append(_time_ms(old if label == "old" else calls[what][0], 500, warmup=20))
+        old_new_ms[what] = (sum(t["old"]) / 2, sum(t["new"]) / 2)
+    k2_ms = _time_ms(lambda: kk.keccak_f1600(y), 20)
+    sponge_ms = {key: _time_ms(lambda: kk.keccak_sponge(blocks), 200 if key[1] == 1 else 50)
+                 for key, blocks in sponge_in.items()}
+
+    for what, (_, bound) in calls.items():
+        fb = max(bound[0], floor_ms)
+        device = (f"device {device_us[what]:.3f} us a launch (CUDA graph of 200 calls, one "
+                  f"kernel node each), device share of the call "
+                  f"{device_us[what] / (ms[what] * 1e3):.4f}" if what in device_us
+                  else "device: the K2b launch above plus two copies")
+        _log(f"{what}: {ms[what] * 1e3:.3f} us a call (CUDA events, back to back); host "
+             f"{host_us[what]:.3f} us a call (perf_counter); {device}; bound "
+             f"{bound[0] * 1e3:.6f} us ({bound[1]}), with the launch floor {fb * 1e3:.3f} us: "
+             f"share {fb / ms[what]:.4f}")
+    for what, old in olds.items():
+        new, bound = calls[what]
+        old_events, new_events = (_cuda_launches(fn)[1] for fn in (old, new))
+        old_t, new_t = old_new_ms[what]
+        fb = max(bound[0], floor_ms)
+        _log(f"{what}, old design against new (old, new, new, old): old {old_t * 1e3:.3f} us "
+             f"in {old_events} device events, new {new_t * 1e3:.3f} us in {new_events} "
+             f"(profiler, one call each); share of the bound with the launch floor "
+             f"({fb * 1e3:.3f} us): old {fb / old_t:.4f}, new {fb / new_t:.4f}")
+
+    n = K2_PATH_STATES
+    k2_plain_ms = _time_ms(lambda: kk.keccak_f1600_plain(y), 2, warmup=1)
+    bound = k2_bound_ms(n, 0, n * K2_BYTES_PER_PERM)
+    _log(f"K2 N=2^18 (the keccak-f path's batch): kernel {k2_ms:.6f} ms, plain "
+         f"{k2_plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
+    k2 = _k2_record("keccak_f1600", (n, 25), k2_err, k2_ms, k2_plain_ms, bound)
+    k2b = None
+    for (n_blocks, n), t in sponge_ms.items():
+        blocks = sponge_in[n_blocks, n]
+        plain_ms = _time_ms(lambda: kk.keccak_sponge_plain(blocks), 3, warmup=1)
+        bound = k2_bound_ms(n * n_blocks, n * n_blocks,
+                            n * (n_blocks * K2B_BYTES_PER_BLOCK + K2B_BYTES_PER_DIGEST))
+        _log(f"K2b {n_blocks} x {n:>5} (blocks x messages): kernel {t:.6f} ms, plain "
+             f"{plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
+        if k2b is None:  # the fingerprint's shape: one message of one block
+            k2b = _k2_record("keccak_sponge", (n_blocks, n, 17), k2b_err, t, plain_ms, bound)
+    return k2, k2b
+
+
+def phase_keccak_f_path(kk) -> dict:
+    """The permutation's own entry point, ``keccak_f1600``, as its caller in
+    the reference uses it (``bench.py``'s keccak section: one batch of 2^18
+    states): K2 is on no prove or verify path since K2b took the CLI's
+    fingerprint.  Launch counts reset just before, read just after; 16 rows
+    checked against the plain version on the CPU."""
+    rng = np.random.default_rng(SEED + 8)
+    states = rng.integers(-(1 << 63), (1 << 63) - 1, (K2_PATH_STATES, 25), dtype=np.int64)
+    x = torch.as_tensor(states, device="cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = kk.keccak_f1600(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_counts("keccak-f", ("keccak_f1600",))
+    want = kk.keccak_f1600_plain(torch.as_tensor(states[:16]))
+    if out.shape != x.shape or not torch.equal(out[:16].cpu(), want):
+        raise AssertionError("keccak_f1600 on 2^18 states: wrong shape or rows")
+    _log(f"keccak-f path: 2^18 permutations in {wall_ms:.3f} ms (host clock), 16 rows equal "
+         f"the plain version")
+    return launches
 
 
 def phase_mulchain(pv, work):
@@ -581,6 +824,7 @@ def _wrappers() -> dict:
             "poseidon2_merkle_levels": poseidon2.poseidon2_merkle_levels,
             "poseidon2_grind": poseidon2.poseidon2_grind,
             "keccak_f1600": keccak.keccak_f1600,
+            "keccak_sponge": keccak.keccak_sponge,
             "mulchain": probe_vpu.mulchain}
 
 
@@ -673,7 +917,9 @@ def phase_main_path(p2, kk, tmp: Path):
         fingerprint = cli._artifact_fingerprint(str(proof_path), device="cuda")
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-    launches = _read_counts("bad-share pre-curve", _K1_PROVE + ("keccak_f1600",))
+    launches = _read_counts("bad-share pre-curve", _K1_PROVE + ("keccak_sponge",))
+    if launches["keccak_sponge"] != 1:
+        raise AssertionError(f"the fingerprint took {launches['keccak_sponge']} K2b launches")
     trees.check("bad-share pre-curve")
     _log(f"main path (cold): prove+save+fingerprint {cold_s:.3f} s, timing {container['timing']}")
 
@@ -723,7 +969,7 @@ def phase_main_path(p2, kk, tmp: Path):
         [hashlib.sha256(proof_path.read_bytes()).digest()], device="cpu"
     )[0].hex()
     if fingerprint != plain_fp:
-        raise AssertionError("K2 fingerprint differs from the plain Keccak")
+        raise AssertionError("K2b fingerprint differs from the plain Keccak")
 
     return launches
 
@@ -894,6 +1140,215 @@ def phase_curve_path(circuit: str, data, chain_bits, log_n: int, sig_checks: int
     return container, launches, verify_launches
 
 
+def _bad_encrypted_share(n: int, k: int):
+    """Sender 0's share payload to receiver 1 of an n-participant, threshold-k
+    committee, encrypted under the ECDH key of the guest's convention (the
+    bytewise-largest base pubkey of each side; key = SHA-256 of the
+    compressed ECDH point, nonce = its first 12 bytes).  The payload has the
+    full auth layout of the guest's parser (178 bytes) but a wrong
+    ``gen_id``, so the guest takes its only exit-0 path, a parse error."""
+    from dvt_circuits_tpu_torch.dkg.keys import BlsDkgWithSecp256kCommitment as Setup
+    from dvt_circuits_tpu_torch.dkg.keys import BlsSecretKey
+    from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
+    from dvt_circuits_tpu_torch.dkg.types import BadEncryptedShare
+    from dvt_circuits_tpu_torch.hostcrypto.chacha20 import chacha20_xor
+
+    com = DkgCommittee(n, k)
+    sender_encr_pubkey = max(com.vvs[0], key=bytes)
+    j = max(range(k), key=lambda i: bytes(com.vvs[1][i]))
+    receiver_encr_seckey = BlsSecretKey(com.polys[1][j]).to_bytes()
+    point = Setup.Point.from_bytes(bytes(sender_encr_pubkey)).mul_scalar(
+        Setup.Scalar.from_bytes(receiver_encr_seckey))
+    key = hashlib.sha256(bytes(point.to_bytes())).digest()
+    sec = com.shared_data(0, 1, True).seeds_exchange_commitment
+    payload = (hashlib.sha256(b"another generation").digest()[:16] + bytes([3])
+               + bytes(sec.shared_secret.secret) + bytes(sec.commitment.hash)
+               + bytes(sec.commitment.pubkey) + bytes(sec.commitment.signature))
+    obj = {
+        "sender_pubkey": bytes(com.secp_keys[0].to_public_key().to_bytes()).hex(),
+        "sender_encr_pubkey": bytes(sender_encr_pubkey).hex(),
+        "receiver_encr_seckey": bytes(receiver_encr_seckey).hex(),
+        "encrypted_data": chacha20_xor(key, key[:12], payload).hex(),
+        "settings": com.settings.to_json(),
+        "base_hashes": [bytes(h).hex() for h in com.base_hashes],
+        "sender_base_pubkeys": [bytes(p).hex() for p in com.vvs[0]],
+        "receiver_base_pubkeys": [bytes(p).hex() for p in com.vvs[1]],
+    }
+    return BadEncryptedShare.from_json(obj, Setup.layout, True)
+
+
+def _check_keystream(gadget: dict) -> None:
+    """Every invocation's proven keystream is the host cipher's for its key
+    and nonce from counter 0."""
+    from dvt_circuits_tpu_torch.hostcrypto.chacha20 import chacha20_keystream
+    from dvt_circuits_tpu_torch.stark.chacha20_air import init_from_publics, keystream_from_publics
+
+    publics = [int(v) for v in gadget["proof"]["public_values"]]
+    gb = 0
+    for i, nb in enumerate(gadget["block_counts"]):
+        key, ctr0, nonce = init_from_publics(publics, gb)
+        ct_len = gadget["extras"][1 + 2 * i]
+        ks = b"".join(keystream_from_publics(publics, gb + j) for j in range(nb))
+        if ctr0 != 0 or nonce != key[:12] or ks[:ct_len] != chacha20_keystream(key, nonce, ct_len):
+            raise AssertionError(f"invocation {i}: keystream differs from the host cipher's")
+        gb += nb
+
+
+def phase_encrypted_share(kk, tmp: Path) -> dict:
+    """bad-encrypted-share 7-of-10 at full width on the card: cold (launches
+    counted, the leaf sponge held to the trees), warm with each prover
+    phase's time and device memory, warm again and profiled; the ChaCha20
+    table's keystream against the host cipher, the openings, and the port's
+    own strict verifier on the card; the CLI ``prove`` and ``verify
+    --show-report`` in-process, each fingerprint one K2b launch; then the
+    table's constraint quotient through both builders.  Returns the launch
+    counts by path."""
+    from dvt_circuits_tpu_torch import cli
+    from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit, verify_proof
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
+    from torch.profiler import ProfilerActivity, profile
+
+    circuit = "bad-encrypted-share"
+    data = _bad_encrypted_share(10, 7)
+    by_path = {}
+    _reset_counts()
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        container = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    by_path[circuit] = _read_counts(circuit, _K1_PROVE)
+    trees.check(circuit)
+    _log(f"{circuit} (cold): prove {cold_s:.3f} s, timing {container['timing']}")
+    tables = _log_tables(container)
+    g = container["gadgets"][-1]
+    _log(f"{circuit}: chacha20 invocations {g['block_counts']}, extras {g['extras']}, "
+         f"stream offsets {g['stream_offsets']}")
+    if ([t[0] for t in tables] != ["stream", "sha256", "chacha20"] or container["chacha_omitted"]
+            or g["block_counts"] != [3] or g["extras"][:2] != [4, 178]
+            or g["proof"]["log_n"] != 7 or g["proof"]["width"] != 1080
+            or g["stream_offsets"][0] is None):
+        raise AssertionError(f"unexpected tables for {circuit}: "
+                             f"{[(t[0], t[1]['log_n'], t[1]['width']) for t in tables]}, "
+                             f"chacha {g['block_counts']} {g.get('extras')}, "
+                             f"omitted {container['chacha_omitted']}")
+    _check_keystream(g)
+    for _, proof in tables:
+        _check_openings(proof)
+    _log(f"{circuit}: the keystream equals the host cipher's; openings re-hashed with s_permute "
+         f"reach their roots")
+
+    with _phase_memory() as rows:
+        t0 = time.perf_counter()
+        warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    _log(f"{circuit} (warm, phases synchronized): prove {warm_s:.3f} s, timing {warm['timing']}")
+    _log_phase_memory(circuit, rows)
+    if container_digest(warm) != container_digest(container):
+        raise AssertionError(f"warm {circuit} container differs from the cold one")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        _log(f"{circuit} (warm): prove {time.perf_counter() - t0:.3f} s, timing {warm['timing']}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _log_profile(prof, prof_s)
+
+    _reset_counts()
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        res = verify_proof(container, circuit, strict=True, device="cuda")
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+    by_path[f"{circuit} verify"] = _read_counts(f"{circuit} verify", _K1_VERIFY)
+    trees.check(f"{circuit} verify")
+    _log(f"{circuit} verify on cuda: {res} in {verify_s:.3f} s")
+    if (res.binding, res.g1_relations, res.g1_omitted) != ("hash-bound", 0, 0):
+        raise AssertionError(f"the port's verifier returned {res} for {circuit}")
+
+    scenario = tmp / "encrypted_scenario.json"
+    scenario.write_text(json.dumps(data.to_json(True)))
+    proof = tmp / "encrypted_proof.bin"
+    for args in (["prove", "--type=" + circuit, "-i", str(scenario), "-o", str(proof)],
+                 ["verify", "--type=" + circuit, "-i", str(proof), "--show-report"]):
+        _reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.run(["--auth-commitment"] + args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _read_counts(f"CLI {args[0]} {circuit}", _K1_VERIFY + ("keccak_sponge",))
+        by_path[f"CLI {args[0]} {circuit}"] = counts
+        expected = kk.keccak256_batch([hashlib.sha256(proof.read_bytes()).digest()],
+                                      device="cpu")[0].hex()
+        line = [ln for ln in out.getvalue().splitlines() if "keccak256: " in ln.lower()]
+        if (rc != 0 or len(line) != 1 or line[0].split(": ", 1)[1] != expected
+                or counts["keccak_sponge"] != 1 or counts["keccak_f1600"] != 0):
+            raise AssertionError(f"CLI {args[0]} {circuit}: exit {rc}, fingerprint {line} vs "
+                                 f"{expected}, K2b launches {counts['keccak_sponge']}, K2 "
+                                 f"{counts['keccak_f1600']}:\n{out.getvalue()}")
+        _log(f"CLI {args[0]} {circuit} (in-process): exit 0 in {wall_s:.3f} s; the fingerprint "
+             f"took one K2b launch and equals the plain Keccak")
+    phase_chacha_quotient([int(v) for v in g["proof"]["public_values"]])
+    return by_path
+
+
+def phase_chacha_quotient(publics: list) -> None:
+    """The encrypted-share ChaCha20 table (its blocks re-derived from the
+    proof's publics: 4 blocks, 2^7 x 1080, LDE 2^9 at ``DEFAULT_CONFIG``):
+    its constraint quotient through ``eval_tensor`` (the prover's path) and
+    through the generic ``eval``, bit-equal, each timed on the host clock
+    between two synchronizes, with its launches."""
+    from dvt_circuits_tpu_torch.field import babybear as bb
+    from dvt_circuits_tpu_torch.field import ext
+    from dvt_circuits_tpu_torch.stark import prover as pr
+    from dvt_circuits_tpu_torch.stark.chacha20_air import (PUBLICS_PER_BLOCK, ChaCha20Air,
+                                                           init_from_publics)
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG as cfg
+
+    air = ChaCha20Air(len(publics) // PUBLICS_PER_BLOCK)
+    trace, pubs = air.generate_trace([init_from_publics(publics, b)
+                                      for b in range(air.num_blocks)])
+    if pubs != publics:
+        raise AssertionError("the ChaCha20 trace re-derived from the publics gives other publics")
+    n = trace.shape[0]
+    log_n = n.bit_length() - 1
+    rng = np.random.default_rng(SEED + 7)
+    alpha = tuple(int(v) for v in rng.integers(0, bb.P, ext.D))
+    dev = torch.device("cuda")
+    t_lde = pr.lde_body(torch.as_tensor(trace.astype(np.int64), device=dev), cfg)
+    p_lde = pr.lde_body(torch.as_tensor(np.asarray(air.preprocessed_trace(n), dtype=np.int64),
+                                        device=dev), cfg)
+    tables = pr._domain_tables(log_n, cfg.log_blowup, cfg.shift, dev)
+    args = (t_lde, p_lde, alpha, pubs, tables, log_n, cfg)
+    times, results, launches = {}, {}, {}
+    for name, which in (("eval_tensor", air), ("generic eval", _EvalOnly(air))):
+        pr.quotient_body(which, *args)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = pr.quotient_body(which, *args)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        _, launches[name] = _cuda_launches(lambda: pr.quotient_body(which, *args))
+    (q, qc, count), (gq, gqc, gcount) = results["eval_tensor"], results["generic eval"]
+    if count != gcount or not (torch.equal(q, gq) and torch.equal(qc, gqc)):
+        raise AssertionError("the ChaCha20 eval_tensor quotient differs from the generic eval's")
+    _log(f"chacha20 constraint quotient on the card (2^{log_n} x {air.width}, LDE "
+         f"2^{log_n + cfg.log_blowup}, {count} constraints): eval_tensor "
+         f"{times['eval_tensor']:.3f} ms in {launches['eval_tensor']} launches; generic eval "
+         f"{times['generic eval']:.3f} ms in {launches['generic eval']} launches; bit-equal")
+    if launches["eval_tensor"] >= launches["generic eval"]:
+        raise AssertionError("the ChaCha20 tensor quotient took no fewer launches than the "
+                             "generic eval")
+
+
 class _EvalOnly:
     """An AIR seen through its generic ``eval`` alone: ``quotient_body`` then
     takes the ``ProverBuilder`` route (the port's quotient before
@@ -996,9 +1451,9 @@ def phase_g1_breakdown() -> None:
 
 
 def phase_gpu_equals_cpu() -> None:
-    """The CPU tests' curve inputs (2-of-3 committee, TEST_CONFIG): the card
-    and the plain CPU path give equal containers, so JAX == port-CPU (the
-    tests; finalization's in the ``heavy`` test) == port-GPU."""
+    """The CPU tests' inputs (2-of-3 committee, TEST_CONFIG): the card and
+    the plain CPU path give equal containers, so JAX == port-CPU (the tests;
+    finalization's in the ``heavy`` test) == port-GPU."""
     from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
     from dvt_circuits_tpu_torch.prover.pipeline import container_digest, prove_circuit
     from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
@@ -1006,6 +1461,7 @@ def phase_gpu_equals_cpu() -> None:
     com = DkgCommittee(3, 2)
     for circuit, data in (("bad-share", com.shared_data_bad_secret(0, 1, True)),
                           ("bad-partial-key", com.bad_partial_key_data(1, True)),
+                          ("bad-encrypted-share", _bad_encrypted_share(3, 2)),
                           ("finalization", com.finalization_data())):
         gpu = prove_circuit(circuit, data, True, TEST_CONFIG, device="cuda")
         t0 = time.perf_counter()
@@ -1047,8 +1503,8 @@ def phase_cli_curve(kk, data, tmp: Path) -> None:
 
 
 #: the phases ``--only`` may name, in the order they run
-PHASES = ("kernels", "pre-curve", "probe", "curve", "finalization", "g1-breakdown", "gpu-cpu",
-          "cli-curve")
+PHASES = ("kernels", "pre-curve", "probe", "keccak-f", "curve", "encrypted-share",
+          "finalization", "g1-breakdown", "gpu-cpu", "cli-curve")
 
 
 def main(argv=None) -> int:
@@ -1091,8 +1547,7 @@ def main(argv=None) -> int:
     records = []
     if "kernels" in only:
         records = [phase_poseidon2(p2), phase_sponge(p2), phase_levels(p2), phase_grind(p2),
-                   phase_keccak(kk, work["keccak_f1600"]),
-                   phase_mulchain(probe_vpu, work["mulchain"])]
+                   *phase_keccak(kk, floor_ms), phase_mulchain(probe_vpu, work["mulchain"])]
         records = [with_floor(rec, floor_ms) for rec in records]
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1100,6 +1555,8 @@ def main(argv=None) -> int:
             by_path["bad-share pre-curve"] = phase_main_path(p2, kk, Path(tmp))
         if "probe" in only:
             by_path["probe"] = phase_probe_path()
+        if "keccak-f" in only:
+            by_path["keccak-f"] = phase_keccak_f_path(kk)
         com = DkgCommittee(10, 7)
         curve_data = com.shared_data_bad_secret(0, 1, True)
         if "curve" in only:
@@ -1107,6 +1564,8 @@ def main(argv=None) -> int:
                 "bad-share", curve_data, [256] + [32] * 6, 12, 1)
             _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
                 "bad-partial-key", com.bad_partial_key_data(1, True), [32] * 6, 11, 2)
+        if "encrypted-share" in only:
+            by_path.update(phase_encrypted_share(kk, Path(tmp)))
         if "finalization" in only:
             _, by_path["finalization"], by_path["finalization verify"] = phase_curve_path(
                 "finalization", com.finalization_data(), None, 16, com.n, profiled=False)
@@ -1119,8 +1578,11 @@ def main(argv=None) -> int:
     if not full:
         _log(f"partial run ({', '.join(p for p in PHASES if p in only)}): every check passed")
         return 0
-    # the record's count: the path each kernel serves (K3: the probe)
-    main_path = {"keccak_f1600": "bad-share pre-curve", "mulchain": "probe"}
+    # the record's count: the path each kernel serves (K3: the probe; K2b
+    # the fingerprint of the pre-curve path; K2, the permutation's own entry
+    # point, since K2b took the fingerprint)
+    main_path = {"keccak_f1600": "keccak-f", "keccak_sponge": "bad-share pre-curve",
+                 "mulchain": "probe"}
     for rec in records:
         rec["launches"] = by_path[main_path.get(rec["name"], "bad-share curve")][rec["name"]]
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}

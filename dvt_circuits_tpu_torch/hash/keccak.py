@@ -4,9 +4,12 @@ Port of ``dvt_circuits_tpu/hash/keccak.py`` and of its Pallas kernel
 ``_pallas_kernel`` (K2).  The TPU has no 64-bit lanes and split each lane
 into (lo, hi) uint32 halves; here a lane is one int64 holding the 64-bit
 pattern.  ``>>`` on int64 is arithmetic, so every rotation masks after its
-right shift.  The CLI's artifact fingerprint runs through K2.
+right shift.  ``keccak_f1600`` (K2) is the kernel's direct counterpart;
+``keccak256_batch`` and ``sha3_256_batch`` (the CLI's artifact
+fingerprint) absorb a whole batch in one launch of ``keccak_sponge`` (K2b).
 
-State layout: (N, 25) int64, lane index x + 5y.
+State layout: (N, 25) int64, lane index x + 5y; sponge blocks (n_blocks, N,
+17), the rate lanes of each padded block.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from .. import kernels
 
 RATE_BYTES = 136  # 1088-bit rate for 256-bit digests
+RATE_LANES = RATE_BYTES // 8
+DIGEST_LANES = 4  # 256-bit digests
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -70,13 +75,15 @@ def keccak_f1600_plain(state: torch.Tensor, consts: dict | None = None) -> torch
 
 
 @lru_cache(maxsize=None)
-def _library():
-    """K2's library, loaded once."""
+def _entry_points():
+    """K2's and K2b's C entry points, their prototypes set once."""
     lib = kernels.load("keccak")
     lib.keccak_f1600.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_longlong, ctypes.c_void_p]
-    lib.keccak_f1600.restype = ctypes.c_int
-    return lib
+    lib.keccak_sponge.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                                  ctypes.c_void_p, ctypes.c_void_p]
+    lib.keccak_f1600.restype = lib.keccak_sponge.restype = ctypes.c_int
+    return lib.keccak_f1600, lib.keccak_sponge
 
 
 def keccak_f1600(state: torch.Tensor) -> torch.Tensor:
@@ -92,15 +99,14 @@ def keccak_f1600(state: torch.Tensor) -> torch.Tensor:
         return keccak_f1600_plain(state)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    state = state.contiguous()
+    if not state.is_contiguous():
+        state = state.contiguous()
     out = torch.empty_like(state)
     n = state.shape[0]
     if n:
-        kernels.check(
-            _library().keccak_f1600(state.data_ptr(), out.data_ptr(), n,
-                                    kernels.stream_handle(state)),
-            "keccak kernel launch",
-        )
+        kernels.check(_entry_points()[0](state.data_ptr(), out.data_ptr(), n,
+                                         kernels.stream_handle(state)),
+                      "keccak kernel launch")
         keccak_f1600.launches += 1
     return out
 
@@ -108,8 +114,50 @@ def keccak_f1600(state: torch.Tensor) -> torch.Tensor:
 keccak_f1600.launches = 0
 
 
+def keccak_sponge_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """The sponge in plain PyTorch ops: absorb (n_blocks, n, 17) int64 rate
+    blocks (padded) into zero states → (n, 4) digest lanes."""
+    state = blocks.new_zeros((blocks.shape[1], 25))
+    for blk in blocks:
+        state[:, :RATE_LANES] ^= blk
+        state = keccak_f1600_plain(state)
+    return state[:, :DIGEST_LANES].contiguous()
+
+
+def keccak_sponge(blocks: torch.Tensor) -> torch.Tensor:
+    """Absorb every rate block of a batch of equal-length messages: (n_blocks,
+    n, 17) int64 lanes, padded (``_pack``) → (n, 4) int64 digest lanes.
+
+    A CPU tensor takes ``keccak_sponge_plain``; a CUDA tensor launches kernel
+    K2b (``csrc/keccak.cu``), one launch for the whole batch, or raises.  K2b
+    is K2's redesign for the reference's one-dispatch sponge
+    (``dvt_circuits_tpu/hash/keccak.py:_absorb_all``, whose permutations run
+    in ``_pallas_kernel``)."""
+    if (blocks.dim() != 3 or blocks.shape[0] < 1 or blocks.shape[2] != RATE_LANES
+            or blocks.dtype != torch.int64):
+        raise ValueError(f"expected (n_blocks >= 1, n, {RATE_LANES}) int64 rate lanes, got "
+                         f"{tuple(blocks.shape)} {blocks.dtype}")
+    if blocks.device.type == "cpu":
+        return keccak_sponge_plain(blocks)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    if not blocks.is_contiguous():
+        blocks = blocks.contiguous()
+    n_blocks, n, _ = blocks.shape
+    out = blocks.new_empty((n, DIGEST_LANES))
+    if n:
+        kernels.check(_entry_points()[1](blocks.data_ptr(), n_blocks, n, out.data_ptr(),
+                                         kernels.stream_handle(blocks)),
+                      "keccak sponge launch")
+        keccak_sponge.launches += 1
+    return out
+
+
+keccak_sponge.launches = 0
+
+
 def _pack(messages, domain_byte: int) -> np.ndarray:
-    """Equal-length messages → (n_blocks, n, 25) uint64 absorb blocks."""
+    """Equal-length messages → (n_blocks, n, 17) int64 rate lanes, padded."""
     ln = len(messages[0])
     if any(len(m) != ln for m in messages):
         raise ValueError("messages must share one length (pad the batch)")
@@ -119,20 +167,15 @@ def _pack(messages, domain_byte: int) -> np.ndarray:
     pad[0] ^= domain_byte
     pad[-1] ^= 0x80
     pad = bytes(pad)
-    buf = np.frombuffer(b"".join(m + pad for m in messages), dtype="<u8")
-    lanes = buf.reshape(len(messages), n_blocks, RATE_BYTES // 8).transpose(1, 0, 2)
-    full = np.zeros((n_blocks, len(messages), 25), dtype=np.uint64)
-    full[:, :, : RATE_BYTES // 8] = lanes
-    return full
+    buf = np.frombuffer(bytearray(b"".join(m + pad for m in messages)), dtype="<i8")
+    lanes = buf.reshape(len(messages), n_blocks, RATE_LANES).transpose(1, 0, 2)
+    return np.ascontiguousarray(lanes, dtype=np.int64)
 
 
 def _hash_batch(messages, domain_byte: int, device) -> list:
-    dev = kernels.resolve_device(device)
-    blocks = torch.as_tensor(_pack(messages, domain_byte).view(np.int64), device=dev)
-    state = torch.zeros((len(messages), 25), dtype=torch.int64, device=dev)
-    for blk in blocks:
-        state = keccak_f1600(state ^ blk)
-    lanes = state[:, :4].cpu().numpy().astype("<i8")
+    """One copy to the device, one K2b launch, one copy back."""
+    blocks = torch.as_tensor(_pack(messages, domain_byte), device=kernels.resolve_device(device))
+    lanes = keccak_sponge(blocks).cpu().numpy().astype("<i8")
     return [row.tobytes() for row in lanes]
 
 

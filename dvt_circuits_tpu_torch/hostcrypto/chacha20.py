@@ -4,9 +4,10 @@ Mirrors the ``chacha20`` 0.9.1 crate usage in the reference's encrypted-share
 guest (crates/bad_encrypted_share_prove/src/main.rs:16-30): 32-byte key,
 12-byte (IETF) nonce, keystream starting at block counter 0.
 
-ChaCha20 is pure ARX on 32-bit words — the batched TPU variant (int32 lanes)
-lives in ``dvt_circuits_tpu.hash.chacha20_tpu``; this module is the scalar
-reference used by the witness programs (payloads are ~100 bytes).
+ChaCha20 is pure ARX on 32-bit words — the batched variant (one tensor row
+per keystream block) lives in ``dvt_circuits_tpu_torch.hash.chacha20``; this
+module is the scalar reference used by the witness programs (payloads are
+~100 bytes).
 """
 
 from __future__ import annotations

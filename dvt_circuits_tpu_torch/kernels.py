@@ -105,4 +105,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream on ``t``'s device, as the int a launch takes:
+    PyTorch's raw accessor, which builds no ``torch.cuda.Stream`` object
+    per call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -5,17 +5,15 @@ Port of ``dvt_circuits_tpu/prover/pipeline.py``.  ``execute_circuit`` runs
 the witness program on the host; ``prove_circuit`` assembles the tables
 exactly as the JAX package does (stream AIR header and words, SHA-256
 relation dedup, cap, sort and power-of-two padding, one G1 scalar-mul
-table per distinct curve relation through ``curve_glue.build_gadget``)
-and proves them on one transcript with the port's ``prove_tables``.
-``verify_proof`` replays that transcript, verifies every table and re-runs
-the SHA-256 and curve bindings.  The container format is the JAX
-package's (``PROOF_FORMAT`` v7): each package verifies the other's
-containers.
+table per distinct curve relation through ``curve_glue.build_gadget``, one
+ChaCha20 keystream table for the recorded decrypts) and proves them on one
+transcript with the port's ``prove_tables``.  ``verify_proof`` replays that
+transcript, verifies every table and re-runs the SHA-256, curve and
+ChaCha20 bindings.  The container format is the JAX package's
+(``PROOF_FORMAT`` v7): each package verifies the other's containers.
 
-Not ported yet: the ChaCha20 table (a witness that records a ChaCha20
-decrypt raises ``ProveError``; a ``chacha20`` gadget raises
-``VerifyError``) and the legacy wide ``g1`` gadget kind, which no v7
-prover emits (``VerifyError``).
+Not ported yet: the legacy wide ``g1`` gadget kind, which no v7 prover
+emits (``VerifyError``).
 """
 
 from __future__ import annotations
@@ -29,6 +27,7 @@ from ..circuits.guest_api import GuestResult, run_guest
 from ..circuits.registry import CIRCUITS, get_circuit
 from ..dkg.hash_recorder import chacha_recording, g1_recording, recording
 from ..pcs.challenger import DuplexChallenger
+from ..stark.chacha20_air import ChaCha20Air, init_from_publics
 from ..stark.config import DEFAULT_CONFIG, StarkConfig
 from ..stark.fused import prove_tables
 from ..stark.g1mul_air import G1MulAir
@@ -156,12 +155,6 @@ def prove_circuit(
         raise ProveError(
             f"witness execution failed (guest panic): {result.panic_message}"
         )
-    if recorded_chacha:
-        raise ProveError(
-            "the witness recorded a ChaCha20 decrypt; the ChaCha20 table is not "
-            "ported to the PyTorch prover yet"
-        )
-
     # distinct SHA-256 relations the witness relied on, in first-use order
     seen: set = set()
     sha_relations = []
@@ -246,9 +239,13 @@ def prove_circuit(
         gadgets.append(gadget)
         g1_entries.append(entry)
 
+    chacha_entry, chacha_omitted = _chacha_table(recorded_chacha, sha_digests,
+                                                 result.public_values, gadgets)
+
     # the absorbed words commit to the gadget structure (see _stream_words)
     words = _stream_words(
-        circuit_name, auth, setup, result.public_values, gadgets, (omitted, 0, g1_omitted)
+        circuit_name, auth, setup, result.public_values, gadgets,
+        (omitted, chacha_omitted, g1_omitted),
     )
     # pad the chunk count to a power of two, as the JAX package does
     num_chunks = max(1, -(-len(words) // 8))
@@ -262,6 +259,8 @@ def prove_circuit(
     if gadget_entry is not None:
         entries.append(gadget_entry)
     entries.extend(g1_entries)
+    if chacha_entry is not None:
+        entries.append(chacha_entry)
     proofs = prove_tables(entries, config, device)
     for g, p in zip(gadgets, proofs[1:]):
         g["proof"] = p
@@ -277,7 +276,7 @@ def prove_circuit(
         "stark": proofs[0],
         "gadgets": gadgets,
         "gadgets_omitted": omitted,
-        "chacha_omitted": 0,
+        "chacha_omitted": chacha_omitted,
         "g1_omitted": g1_omitted,
         "config": {
             "log_blowup": config.log_blowup,
@@ -288,6 +287,54 @@ def prove_circuit(
         },
         "timing": {"witness_ms": int(witness_time * 1000), "prove_ms": int(prove_time * 1000)},
     }
+
+
+#: most keystream blocks one ChaCha20 table carries (padded count included)
+MAX_CHACHA_BLOCKS = 64
+
+
+def _chacha_table(recorded: list, sha_digests: list, stream: bytes, gadgets: list):
+    """The ChaCha20 keystream table of the recorded decrypts, as
+    ``dvt_circuits_tpu/prover/pipeline.py`` builds it: one 21-row block
+    group per 64-byte keystream block of each distinct invocation, padded to
+    a power of two with zero-key blocks.  An invocation outside the
+    verifier's derivation convention (empty ciphertext, counter not 0, nonce
+    not key[:12], key not a digest of the SHA-256 table, or more than
+    ``MAX_CHACHA_BLOCKS`` blocks in all) is counted, never dropped silently.
+    Appends the gadget to ``gadgets``; returns (table entry or None, count
+    omitted)."""
+    invs = list(dict.fromkeys(recorded))  # distinct, in first-use order
+    blocks: list = []
+    inv_bcs: list = []
+    inv_offs: list = []
+    inv_extras: list = []
+    omitted = 0
+    for key, nonce, counter0, ct in invs:
+        nb = max(1, -(-len(ct) // 64))
+        if (not ct or counter0 != 0 or nonce != key[:12] or key not in sha_digests
+                or len(blocks) + nb > MAX_CHACHA_BLOCKS):
+            omitted += 1
+            continue
+        # guests commit the ciphertext as hex text, in either case
+        off = stream.find(ct.hex().encode("ascii"))
+        if off < 0:
+            off = stream.find(ct.hex().upper().encode("ascii"))
+        blocks += [(key, j, nonce) for j in range(nb)]
+        inv_bcs.append(nb)
+        inv_offs.append(off if off >= 0 else None)
+        inv_extras += [len(ct), sha_digests.index(key)]
+    if not blocks:
+        return None, omitted
+    blocks += [(bytes(32), 0, bytes(12))] * ((1 << (len(blocks) - 1).bit_length()) - len(blocks))
+    gadgets.append({
+        "kind": "chacha20",
+        "block_counts": inv_bcs,
+        "stream_offsets": inv_offs,
+        "extras": [len(blocks)] + inv_extras,
+        "proof": None,  # filled by prove_circuit
+    })
+    air = ChaCha20Air(len(blocks))
+    return (air, *air.generate_trace(blocks)), omitted
 
 
 def verify_proof(
@@ -368,10 +415,12 @@ def verify_proof(
                     entry, stream, sha_ctx, config, challenger, auth, name
                 )
                 g1_relations += 1
-            elif kind in ("chacha20", "g1"):
+            elif kind == "chacha20":
+                _verify_chacha_gadget(entry, stream, sha_ctx, config, challenger)
+            elif kind == "g1":
                 raise VerifyError(
-                    f"the {kind!r} gadget's table is not ported to the PyTorch "
-                    "verifier yet; verify this container with the JAX package"
+                    "the 'g1' gadget's table is not ported to the PyTorch verifier yet "
+                    "(the legacy wide G1 kind); verify this container with the JAX package"
                 )
             else:
                 raise VerifyError(f"unknown gadget kind {kind!r}")
@@ -456,6 +505,63 @@ def _verify_g1mul_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfi
     except curve_glue.GlueError as e:
         raise VerifyError(f"g1mul binding: {e}") from None
     return sig_checks
+
+
+def _verify_chacha_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfig,
+                          challenger: DuplexChallenger) -> None:
+    """Verify the ChaCha20 keystream table and its bindings.  Per invocation:
+    counters run 0..nb-1 under one key and nonce; the key is the SHA-256
+    table's digest of the compressed ECDH point and the nonce its first 12
+    bytes (the reference guest's derivation); the ciphertext at the
+    descriptor's stream offset is hex text of the claimed length, so
+    plaintext = ciphertext XOR keystream is recomputable."""
+    bcs = [int(v) for v in entry["block_counts"]]
+    offsets = entry.get("stream_offsets", [])
+    extras = [int(v) for v in entry.get("extras", [])]
+    if not 1 <= len(bcs) <= 16 or len(offsets) != len(bcs):
+        raise VerifyError("chacha invocation count out of range")
+    if any(not 1 <= b <= 16 for b in bcs):
+        raise VerifyError("chacha block count out of range")
+    if len(extras) != 1 + 2 * len(bcs):
+        raise VerifyError("chacha extras malformed")
+    total_blocks = extras[0]
+    if not sum(bcs) <= total_blocks <= MAX_CHACHA_BLOCKS:
+        raise VerifyError("chacha total block count out of range")
+    c_air = ChaCha20Air(total_blocks)
+    c_publics = [int(v) for v in entry["proof"]["public_values"]]
+    try:
+        c_air.check_publics(c_publics)
+    except ValueError as e:
+        raise VerifyError(f"chacha publics: {e}") from None
+    stark_verify(c_air, entry["proof"], c_publics, config, challenger)
+    gb = 0
+    for i, nb in enumerate(bcs):
+        ct_len, key_msg = extras[1 + 2 * i], extras[2 + 2 * i]
+        key0, ctr0, nonce0 = init_from_publics(c_publics, gb)
+        if ctr0 != 0 or nonce0 != key0[:12]:
+            raise VerifyError("chacha init violates the key-derivation convention")
+        for j in range(1, nb):
+            if init_from_publics(c_publics, gb + j) != (key0, j, nonce0):
+                raise VerifyError("chacha keystream blocks are not consecutive")
+        if sha_ctx is None:
+            raise VerifyError("chacha gadget requires the SHA-256 table")
+        sha_air, sha_publics = sha_ctx
+        if not 0 <= key_msg < sha_air.num_messages:
+            raise VerifyError("chacha key message index out of range")
+        if digest_from_publics(sha_air, sha_publics, key_msg) != key0:
+            raise VerifyError("chacha key not bound to the ECDH digest")
+        if not 1 <= ct_len <= 64 * nb or -(-ct_len // 64) != nb:
+            raise VerifyError("chacha ciphertext length inconsistent with blocks")
+        off = offsets[i]
+        if off is not None:
+            off = int(off)
+            if not 0 <= off <= len(stream) - 2 * ct_len:
+                raise VerifyError("chacha ciphertext offset out of range")
+            try:
+                bytes.fromhex(stream[off : off + 2 * ct_len].decode("ascii"))
+            except (UnicodeDecodeError, ValueError):
+                raise VerifyError("chacha ciphertext not bound to the committed stream") from None
+        gb += nb
 
 
 def save_proof(container: dict, path: str) -> None:

@@ -46,6 +46,16 @@ def test_keccak_kernel_matches_plain(card, n):
         assert keccak.sha3_256_batch(msgs) == [hashlib.sha3_256(m).digest() for m in msgs]
 
 
+@pytest.mark.parametrize("n_blocks, n", [(1, 1), (3, 1), (1, 4096), (3, 4096)])
+def test_keccak_sponge_kernel_matches_plain(card, n_blocks, n):
+    blocks = torch.as_tensor(np.random.default_rng(n + n_blocks).integers(
+        -(1 << 63), (1 << 63) - 1, (n_blocks, n, 17)), device=card)
+    before = keccak.keccak_sponge.launches
+    got = keccak.keccak_sponge(blocks)
+    assert keccak.keccak_sponge.launches == before + 1
+    assert torch.equal(got, keccak.keccak_sponge_plain(blocks))
+
+
 def test_proof_on_card_equals_cpu_proof(card):
     trace = FibonacciAir.generate_trace(64)
     entry = [(FibonacciAir(), trace, FibonacciAir.public_values(trace))]

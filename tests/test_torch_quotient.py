@@ -1,12 +1,12 @@
-"""The port's tensor constraint path: for the Poseidon2 stream, SHA-256 and
-G1 scalar-mul AIRs, ``quotient_body`` through ``TensorBuilder`` (each AIR's
+"""The port's tensor constraint path: for the Poseidon2 stream, SHA-256, G1
+scalar-mul and ChaCha20 AIRs, ``quotient_body`` through ``TensorBuilder`` (each AIR's
 ``eval_tensor``) equals the same quotient through ``ProverBuilder`` (the
 generic ``eval``) and the JAX package's ``quotient_body`` (its own
 ``TensorBuilder`` path, its jitted quotient phase on the CPU, converted
 from Montgomery form): ``q_matrix``, ``q_col_coeffs`` and the constraint count, bit for bit
 (the tolerance for a finite field), whatever the row chunk.  Inputs come
-from numpy seeds, at small sizes: every table has 2^8 rows, so the JAX
-domain tables are built once."""
+from numpy seeds, at small sizes: the first three tables have 2^8 rows, the
+two-block ChaCha20 table 2^6."""
 
 from functools import lru_cache
 
@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from dvt_circuits_tpu.field import babybear as jbb
 from dvt_circuits_tpu.field import ext as jext
 from dvt_circuits_tpu.stark import prover as jprover
+from dvt_circuits_tpu.stark.chacha20_air import ChaCha20Air as JaxChaCha20Air
 from dvt_circuits_tpu.stark.config import TEST_CONFIG as JAX_TEST_CONFIG
 from dvt_circuits_tpu.stark.g1mul_air import G1MulAir as JaxG1MulAir
 from dvt_circuits_tpu.stark.poseidon2_air import Poseidon2StreamAir as JaxStreamAir
@@ -27,6 +28,7 @@ from dvt_circuits_tpu_torch.field import ext
 from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 from dvt_circuits_tpu_torch.stark import prover
 from dvt_circuits_tpu_torch.stark.air import Air
+from dvt_circuits_tpu_torch.stark.chacha20_air import ChaCha20Air
 from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
 from dvt_circuits_tpu_torch.stark.g1mul_air import G1MulAir
 from dvt_circuits_tpu_torch.stark.poseidon2_air import Poseidon2StreamAir
@@ -55,7 +57,16 @@ def _g1mul():
     return air, JaxG1MulAir((32,)), *air.generate_trace([chain])
 
 
-_CASES = {"stream": _stream, "sha256": _sha256, "g1mul": _g1mul}
+def _chacha20():
+    """Two keystream blocks of random keys and nonces, counters 0 and 1."""
+    rng = np.random.default_rng(21)
+    blocks = [(bytes(rng.integers(0, 256, 32, dtype=np.uint8)), ctr,
+               bytes(rng.integers(0, 256, 12, dtype=np.uint8))) for ctr in (0, 1)]
+    air = ChaCha20Air(2)
+    return air, JaxChaCha20Air(2), *air.generate_trace(blocks)
+
+
+_CASES = {"stream": _stream, "sha256": _sha256, "g1mul": _g1mul, "chacha20": _chacha20}
 
 
 class _EvalOnly(Air):

@@ -58,15 +58,24 @@ def test_wrong_circuit_name_rejected(g1_omitted):
         jax_pipeline.verify_proof(g1_omitted, "finalization")
 
 
+#: what the verifier says of a SHA-256 gadget renamed to each kind: the
+#: legacy wide-G1 table is refused by name; a ChaCha20 table (ported) is held
+#: to the ChaCha20 gadget's own checks, which a SHA-256 descriptor fails
+_RENAMED_GADGET_ERRORS = {"chacha20": "chacha extras malformed",
+                          "g1": "the 'g1' gadget's table is not ported"}
+
+
 @pytest.mark.parametrize("kind", ["chacha20", "g1"])
 def test_unported_gadget_kinds_rejected(g1_omitted, kind, monkeypatch):
-    """A ChaCha20 or legacy wide-G1 table is refused by name, not skipped.
-    The tables' STARKs are stubbed out so that the renamed gadget reaches
-    the dispatch (its new kind id no longer matches the stream digest)."""
+    """A gadget renamed to another kind is rejected, never skipped: by name
+    for the legacy wide-G1 kind (not ported), by the ChaCha20 gadget's checks
+    for ``chacha20``.  The tables' STARKs are stubbed out so that the
+    renamed gadget reaches the dispatch (its new kind id no longer matches
+    the stream digest)."""
     monkeypatch.setattr(pipeline, "stark_verify", lambda *args: True)
     bad = copy.deepcopy(g1_omitted)
     bad["gadgets"][0]["kind"] = kind
-    with pytest.raises(VerifyError, match=f"the '{kind}' gadget's table is not ported"):
+    with pytest.raises(VerifyError, match=_RENAMED_GADGET_ERRORS[kind]):
         verify_proof(bad, device="cpu")
 
 
