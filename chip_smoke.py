@@ -33,6 +33,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ones, in turns; timings;
   5. K3 (the multiply-add probe): kernel vs plain on (16, 2^18) random
      values plus rows of 0, 1 and 2^32−1, bit-equal; timings; its IMAD rate;
+  5b. the curve package (phase ``curve``): C1 (the Fp Montgomery product)
+     bit-equal to ``mont_mul_plain`` on 2^16 random pairs and the rows 0, 1,
+     p − 1, p − 2; C2 (the windowed G1 MSM) and C3 (the GLV bucket MSM)
+     equal to the host oracle on an edge batch (zero scalars, an identity,
+     a repeated point, P and −P; C3 at w = 2, 4, 8) and at bench.py's 1,024
+     and 4,096 points (P_i = (7i + 3)·G, so the oracle is one host scalar
+     multiplication), C2's Jacobian limbs equal to ``msm_plain``'s and C3's
+     plain version equal to the oracle at both sizes; C4 (the G2 scalar
+     multiplication) limb-equal to ``scalar_mul_plain`` and equal to the
+     host ``g2_mul`` on 16 points; each timed against its plain version
+     and its bound; then the curve path: ``msm`` and ``msm_bucket`` at 4,096
+     points, ``g2.scalar_mul`` and ``g1.add``/``double`` (products through
+     C1) with the launch counts reset;
   6. the pre-curve bad-share path: ``prove_circuit("bad-share")`` at
      ``DEFAULT_CONFIG`` for a 7-of-10 committee whose seed exchange names a
      destination outside the committee (the guest slashes before the
@@ -69,7 +82,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ``TEST_CONFIG`` give equal container bytes;
  12. the CLI ``prove`` of the 7-of-10 curve fault and ``verify
      --show-report`` of its file, as subprocesses;
- 13. one ``{"kernels": [...]}`` line, the card line, and as the last line
+ 13. the HTTP node (phase ``node``): ``make_server(..., device="cuda")``
+     in a thread; ``POST /prove/bad-share`` of the pre-curve 7-of-10
+     scenario with the launch counts reset (K1 must launch), its
+     ``public_values`` equal to ``prove_circuit``'s; the spec route equal to
+     ``schema_for``; ``execute`` 200, an unknown type and a malformed body
+     500; the CLI ``get-schema`` and ``validate-schema`` in-process;
+ 14. one ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--only phase,...`` runs the kernel builds and the named phases alone
@@ -85,7 +104,11 @@ int32 instruction rates (see ``_INT32_OPS_PER_S`` and ``_IMAD_PER_S``); the
 larger of the two.  K1's and K2's work is the permutation's, counted from
 its definition (``P2_IMAD``, ``P2_INSTR``; ``K2_INSTR``, and
 ``K2B_ABSORB_INSTR`` per absorbed block) times the permutations of the
-call, the same for every design; K3's comes from its SASS
+call, the same for every design; C1–C4's is Fp products of
+``FP_MUL_IMAD`` multiplies, counted per point operation from the
+formulas (``G1_ADD_MULS``, ``G1_DBL_MULS``, ``G2_ADD_MULS``,
+``G2_DBL_MULS``) and per algorithm from this run's digits and bits; K3's
+comes from its SASS
 (``kernel_work``).  No call can take less than a launch, so each record
 also carries ``launch_floor_ms``, the measured time of the cheapest launch
 (``launch_floor_ms()``), and ``floor_bound_ms``, the larger of the two.
@@ -156,6 +179,26 @@ K2_BYTES_PER_PERM = 2 * 25 * 8
 K2B_BYTES_PER_BLOCK = 17 * 8
 K2B_BYTES_PER_DIGEST = 4 * 8
 K3_BYTES_PER_ELEM = 2 * 8
+#: BLS12-381 work as the algorithms define it, whatever the design: one Fp
+#: Montgomery product on 12 words of 32 bits is 2 * 12^2 + 12 = 300 32-bit
+#: multiplies (a * b_i and m * p_j for each word i, and m), counted as IMAD;
+#: a G1 addition is 16 products (add-2007-bl: 11 multiplies, 5 squares; the
+#: doubling the JAX code also computes on every addition is not counted), a
+#: doubling 7 (dbl-2009-l: 2 multiplies, 5 squares); over Fp^2 a multiply is
+#: 3 base products (Karatsuba) and a square 2, so a G2 addition is 11 * 3 +
+#: 5 * 2 and a doubling 2 * 3 + 5 * 2
+FP_MUL_IMAD = 2 * 12 * 12 + 12
+G1_ADD_MULS = 16
+G1_DBL_MULS = 7
+G2_ADD_MULS = 11 * 3 + 5 * 2
+G2_DBL_MULS = 2 * 3 + 5 * 2
+#: bytes of one Fp element in the port's layout (32 int64 limbs)
+FP_BYTES = 32 * 8
+#: the curve phase's sizes: C1's products, the MSM points (bench.py times
+#: its MSMs at 1024 and 4096), C4's G2 points
+C1_PAIRS = 1 << 16
+MSM_POINTS = (1024, 4096)
+G2_POINTS = 16
 #: integer ALU opcodes counted as work in the compiled kernels
 _INT_OPCODES = {"IMAD", "IADD3", "ISETP", "VIADD", "SHF", "LOP3", "SEL", "IMNMX", "LEA", "PRMT"}
 
@@ -817,6 +860,7 @@ def _log_profile(prof, wall_s: float) -> None:
 def _wrappers() -> dict:
     """Every kernel wrapper by record name; each counts its launches."""
     from dvt_circuits_tpu_torch import probe_vpu
+    from dvt_circuits_tpu_torch.curve import fp, g1, g2
     from dvt_circuits_tpu_torch.hash import keccak, poseidon2
 
     return {"poseidon2_permute": poseidon2.poseidon2_permute,
@@ -825,7 +869,11 @@ def _wrappers() -> dict:
             "poseidon2_grind": poseidon2.poseidon2_grind,
             "keccak_f1600": keccak.keccak_f1600,
             "keccak_sponge": keccak.keccak_sponge,
-            "mulchain": probe_vpu.mulchain}
+            "mulchain": probe_vpu.mulchain,
+            "fp_mont_mul": fp.mont_mul,
+            "g1_msm_windowed": g1.msm_jacobian,
+            "g1_msm_bucket": g1.msm_bucket_jacobian,
+            "g2_scalar_mul": g2.scalar_mul}
 
 
 class _TreeCount:
@@ -1502,9 +1550,324 @@ def phase_cli_curve(kk, data, tmp: Path) -> None:
         raise AssertionError("CLI verify did not report curve-bound+sig")
 
 
+def _curve_record(name: str, replaces: str, shape, err: int, ms: float, plain_ms: float,
+                  bound) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "dvt_circuits_tpu_torch/csrc/curve.cu",
+        "replaces": replaces,
+        "shape": list(shape),
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+    }
+
+
+def curve_bound_ms(products: int, bytes_moved: int):
+    """A curve kernel's bound: ``products`` Fp products of ``FP_MUL_IMAD``
+    multiplies each, or its bytes; the larger."""
+    return _bound_ms(products, (FP_MUL_IMAD, FP_MUL_IMAD), bytes_moved)
+
+
+def _cuda_ms(fn):
+    """(fn(), its ms) for one call, between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _limb_err(a, b) -> int:
+    """Largest |a − b| over nested tuples of limb tensors."""
+    if isinstance(a, tuple):
+        return max(_limb_err(x, y) for x, y in zip(a, b))
+    return int((a - b).abs().max())
+
+
+def _bench_points(n: int):
+    """bench.py's MSM input: P_i = (7i + 3)·G (by additions of 7G) and random
+    256-bit scalars from numpy; the host oracle is one scalar multiplication
+    (Σ s_i (7i + 3) mod r)·G."""
+    from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
+
+    rng = np.random.default_rng(SEED + 20 + n)
+    step = host.g1_mul(host.G1_GEN, 7)
+    points = [host.g1_mul(host.G1_GEN, 3)]
+    for _ in range(n - 1):
+        points.append(host.g1_add(points[-1], step))
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    want = host.g1_mul(host.G1_GEN, sum(s * (7 * i + 3) for i, s in enumerate(scalars)) % host.R)
+    return points, scalars, want
+
+
+def _edge_points():
+    """Zero scalars, an identity point, a repeated point and a P / −P pair,
+    with the host oracle's sum."""
+    from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
+
+    pts = [host.g1_mul(host.G1_GEN, 7 * i + 3) for i in range(4)]
+    points = [None, pts[0], pts[1], pts[1], pts[2], host.g1_neg(pts[2]), pts[3], host.G1_GEN]
+    scalars = [5, 0, 7, 7, 11, 11, 0x1234_5678_9ABC_DEF0 << 190, host.R - 1]
+    want = None
+    for p, s in zip(points, scalars):
+        want = host.g1_add(want, host.g1_mul(p, s) if p else None)
+    return points, scalars, want
+
+
+def _windowed_products(digits) -> int:
+    """C2's Fp products for this input: per point 14 table additions, 256
+    doublings and one addition for each nonzero digit; n − 1 additions to
+    reduce."""
+    n = digits.shape[0]
+    adds = 14 * n + int((digits != 0).sum()) + max(n - 1, 0)
+    return adds * G1_ADD_MULS + 256 * n * G1_DBL_MULS
+
+
+def _bucket_products(digits, window_bits: int) -> int:
+    """C3's Fp products for this input, Pippenger's count: each point with a
+    nonzero digit once per window, 2 (2^w − 1) additions per window for the
+    running sums, and the cross-window Horner's w doublings and one
+    addition per window after the first."""
+    nwin = digits.shape[1]
+    adds = int((digits != 0).sum()) + nwin * 2 * ((1 << window_bits) - 1) + (nwin - 1)
+    return adds * G1_ADD_MULS + (nwin - 1) * window_bits * G1_DBL_MULS
+
+
+def phase_curve_kernels():
+    """C1–C4 against their plain versions and the host oracle, timed; returns
+    the kernel records (launches filled later)."""
+    from dvt_circuits_tpu_torch.curve import fp, g1, g2
+    from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
+
+    records = []
+    # -- C1: 2^16 random pairs below p (top limb under p's), and the edges --
+    rng = np.random.default_rng(SEED + 10)
+    n = C1_PAIRS
+    top = int(fp.P_INT >> (12 * 31))
+    limbs = rng.integers(0, 1 << 12, (2, n, 32), dtype=np.int64)
+    limbs[..., 31] = rng.integers(0, top, (2, n))
+    edges = np.stack([fp.int_to_limbs(v) for v in (0, 1, fp.P_INT - 1, fp.P_INT - 2)])
+    a = torch.as_tensor(np.concatenate([limbs[0], edges, edges]), device="cuda")
+    b = torch.as_tensor(np.concatenate([limbs[1], edges, edges[::-1].copy()]), device="cuda")
+    err = _limb_err(fp.mont_mul(a, b), fp.mont_mul_plain(a, b))
+    if err:
+        raise AssertionError("C1 fp_mont_mul differs from mont_mul_plain")
+    a, b = a[:n].contiguous(), b[:n].contiguous()
+    ms = _time_ms(lambda: fp.mont_mul(a, b), 100)
+    plain_ms = _time_ms(lambda: fp.mont_mul_plain(a, b), 3, warmup=1)
+    bound = curve_bound_ms(n, 3 * n * FP_BYTES)
+    _log(f"C1 fp_mont_mul: bit-equal to mont_mul_plain on {n} pairs and the rows 0, 1, p-1, "
+         f"p-2; {n} products {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
+         f"({bound[1]}), share {bound[0] / ms:.4f}")
+    records.append(_curve_record("fp_mont_mul", "dvt_circuits_tpu/curve/fp.py:151", (n, 32), err,
+                                 ms, plain_ms, bound))
+
+    # -- C2, C3: the edge batch, then bench's sizes ---------------------------
+    points, scalars, want = _edge_points()
+    for w in (2, 4, 8):
+        if g1.msm_bucket(points, scalars, w, device="cuda") != want:
+            raise AssertionError(f"C3 g1_msm_bucket (w = {w}) differs from the oracle on the "
+                                 f"edge batch")
+    if g1.msm(points, scalars, device="cuda") != want:
+        raise AssertionError("C2 g1_msm_windowed differs from the oracle on the edge batch")
+    _log("C2, C3: the edge batch (zero scalars, identity, a repeated point, P and -P) "
+         "equals the host oracle (C3 at w = 2, 4, 8)")
+    for n in MSM_POINTS:
+        t0 = time.perf_counter()
+        points, scalars, want = _bench_points(n)
+        p = g1.from_affine_points(points, "cuda")
+        digits = g1.scalars_to_digits(scalars, "cuda")
+        w = g1.default_window_bits(n)
+        pb, db = g1.bucket_inputs(points, scalars, w, "cuda")
+        _log(f"MSM input of {n} points and the host oracle: {time.perf_counter() - t0:.3f} s")
+        got2 = g1.msm_jacobian(p, digits)
+        got3 = g1.msm_bucket_jacobian(pb, db, w)
+        for name, got in (("C2", got2), ("C3", got3)):
+            if g1.to_affine_points(tuple(c[None] for c in got))[0] != want:
+                raise AssertionError(f"{name} at {n} points differs from the host oracle")
+        ms2 = _time_ms(lambda: g1.msm_jacobian(p, digits), 3, warmup=1)
+        ms3 = _time_ms(lambda: g1.msm_bucket_jacobian(pb, db, w), 3, warmup=1)
+        plain2, plain2_ms = _cuda_ms(lambda: g1.msm_plain(p, digits))
+        err2 = _limb_err(got2, plain2)
+        if err2:
+            raise AssertionError(f"C2 at {n} points: Jacobian limbs differ from msm_plain")
+        plain3, plain3_ms = _cuda_ms(lambda: g1.msm_bucket_plain(pb, db, w))
+        if g1.to_affine_points(tuple(c[None] for c in plain3))[0] != want:
+            raise AssertionError(f"msm_bucket_plain at {n} points differs from the oracle")
+        bound2 = curve_bound_ms(_windowed_products(digits),
+                                n * (3 * FP_BYTES + 64 * 4) + 3 * FP_BYTES)
+        bound3 = curve_bound_ms(_bucket_products(db, w),
+                                db.shape[0] * (3 * FP_BYTES + db.shape[1] * 4) + 3 * FP_BYTES)
+        _log(f"C2 g1_msm_windowed at {n} points: equals the oracle, Jacobian limbs equal "
+             f"msm_plain's; {ms2:.6f} ms (2 device launches a call), plain {plain2_ms:.3f} ms, "
+             f"bound {bound2[0]:.6f} ms ({bound2[1]}), share {bound2[0] / ms2:.3e}")
+        _log(f"C3 g1_msm_bucket at {n} points (m = {db.shape[0]}, w = {w}, {db.shape[1]} "
+             f"windows): equals the oracle, as does msm_bucket_plain; {ms3:.6f} ms (3 device "
+             f"launches a call), plain {plain3_ms:.3f} ms, bound {bound3[0]:.6f} ms "
+             f"({bound3[1]}), share {bound3[0] / ms3:.3e}")
+        records.append(_curve_record("g1_msm_windowed", "dvt_circuits_tpu/curve/g1.py:214",
+                                     (n,), err2, ms2, plain2_ms, bound2))
+        records.append(_curve_record("g1_msm_bucket", "dvt_circuits_tpu/curve/g1.py:341",
+                                     (n,), 0, ms3, plain3_ms, bound3))
+
+    # -- C4: G2 points, one of them the identity ------------------------------
+    rng = np.random.default_rng(SEED + 11)
+    n = G2_POINTS
+    g2_points = [host.g2_mul(host.G2_GEN, 3 + 2 * i) for i in range(n - 1)] + [None]
+    g2_scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    pg = g2.from_host_points(g2_points, "cuda")
+    bits = g1.scalars_to_bits(g2_scalars, "cuda")
+    got = g2.scalar_mul(pg, bits)
+    plain, plain_ms = _cuda_ms(lambda: g2.scalar_mul_plain(pg, bits))
+    err = _limb_err(got, plain)
+    if err:
+        raise AssertionError("C4 g2_scalar_mul: Jacobian limbs differ from scalar_mul_plain")
+    if g2.to_host_points(got) != [host.g2_mul(q, k) if q else None
+                                  for q, k in zip(g2_points, g2_scalars)]:
+        raise AssertionError("C4 g2_scalar_mul differs from the host g2_mul")
+    ms = _time_ms(lambda: g2.scalar_mul(pg, bits), 5, warmup=1)
+    products = n * 256 * G2_DBL_MULS + int(bits.sum()) * G2_ADD_MULS
+    bound = curve_bound_ms(products, n * (2 * 3 * 2 * FP_BYTES + 256 * 4))
+    _log(f"C4 g2_scalar_mul at {n} points: Jacobian limbs equal scalar_mul_plain's, affine "
+         f"equals the host g2_mul; {ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
+         f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3e}")
+    records.append(_curve_record("g2_scalar_mul", "dvt_circuits_tpu/curve/g2.py:170", (n,), err,
+                                 ms, plain_ms, bound))
+    return records
+
+
+_CURVE_KERNELS = ("fp_mont_mul", "g1_msm_windowed", "g1_msm_bucket", "g2_scalar_mul")
+
+
+def phase_curve_package() -> dict:
+    """The curve package's entry points as a user calls them, with the launch
+    counts reset just before and read just after: ``msm`` and
+    ``msm_bucket`` at 4096 points (bench's size), ``g2.scalar_mul`` on 16
+    points, and ``g1.add`` / ``g1.double`` (products through C1) on 1024."""
+    from dvt_circuits_tpu_torch.curve import g1, g2
+    from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
+
+    points, scalars, want = _bench_points(MSM_POINTS[-1])
+    g2_points = [host.g2_mul(host.G2_GEN, 3 + 2 * i) for i in range(G2_POINTS)]
+    small = points[:MSM_POINTS[0]]
+    _reset_counts()
+    t0 = time.perf_counter()
+    windowed = g1.msm(points, scalars, device="cuda")
+    bucket = g1.msm_bucket(points, scalars, device="cuda")
+    g2_got = g2.to_host_points(g2.scalar_mul(g2.from_host_points(g2_points, "cuda"),
+                                             g1.scalars_to_bits(scalars[:G2_POINTS], "cuda")))
+    p = g1.from_affine_points(small, "cuda")
+    summed = g1.to_affine_points(g1.add(p, g1.double(p)))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _read_counts("curve", _CURVE_KERNELS)
+    if windowed != want or bucket != want:
+        raise AssertionError("msm / msm_bucket differ from the host oracle")
+    if g2_got != [host.g2_mul(q, k) for q, k in zip(g2_points, scalars)]:
+        raise AssertionError("g2.scalar_mul differs from the host g2_mul")
+    if summed != [host.g1_mul(q, 3) for q in small]:
+        raise AssertionError("g1.add(P, g1.double(P)) differs from the host 3·P")
+    _log(f"curve path: msm and msm_bucket at {len(points)} points, g2.scalar_mul on "
+         f"{len(g2_points)}, g1.add and g1.double on {len(small)} in {wall_s:.3f} s (host input and output included); each equals "
+         f"the host")
+    return launches
+
+
+def phase_node(tmp: Path) -> dict:
+    """The port's HTTP service on the card: ``POST /prove/bad-share`` of the
+    pre-curve 7-of-10 scenario (launch counts reset before the request, read
+    after it), its spec route, ``execute``, an unknown type and a malformed
+    body; then the CLI's ``get-schema`` and ``validate-schema`` in-process."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from dvt_circuits_tpu_torch import cli
+    from dvt_circuits_tpu_torch.circuits.registry import get_circuit
+    from dvt_circuits_tpu_torch.dkg.schemas import schema_for
+    from dvt_circuits_tpu_torch.prover.pipeline import prove_circuit
+    from dvt_circuits_tpu_torch.service.node import make_server
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
+
+    data = _bad_share_scenario()
+    body = json.dumps(data.to_json(True)).encode()
+    schema = schema_for("SharedData", get_circuit("bad-share").setup.layout, True)
+
+    def request(method: str, path: str, payload=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=payload,
+                                     method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    server = make_server("127.0.0.1", 0, True, device="cuda")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        status, proved = request("POST", "/prove/bad-share", body)
+        wall_s = time.perf_counter() - t0
+        launches = _read_counts("node", _K1_PROVE)
+        if status != 200 or proved.get("status") != "proved":
+            raise AssertionError(f"POST /prove/bad-share: {status} {proved}")
+        direct = prove_circuit("bad-share", data, True, DEFAULT_CONFIG, device="cuda")
+        if proved["public_values"] != direct["public_values"]:
+            raise AssertionError("the node's public_values differ from prove_circuit's")
+        _log(f"node: POST /prove/bad-share (7-of-10 pre-curve) 200 proved in {wall_s:.3f} s "
+             f"(timing {proved['timing']}); public_values equal prove_circuit's")
+        if request("GET", "/prove/bad-share/spec") != (200, {"status": "ok", "schema": schema}):
+            raise AssertionError("GET /prove/bad-share/spec differs from schema_for")
+        checks = [(("POST", "/execute/bad-share", body), 200),
+                  (("POST", "/execute/no-such-circuit", body), 500),
+                  (("POST", "/execute/bad-share", b"{not json"), 500)]
+        for args, code in checks:
+            got = request(*args)
+            if got[0] != code:
+                raise AssertionError(f"{args[0]} {args[1]}: {got}, expected {code}")
+        _log("node: spec route equals schema_for; execute 200; unknown type and malformed "
+             "body 500")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the node's server thread did not stop")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.run(["--auth-commitment", "get-schema", "--type=bad-share",
+                      "--schema-type=json"])
+    if rc != 0 or json.loads(out.getvalue()) != schema:
+        raise AssertionError("CLI get-schema differs from schema_for")
+    (tmp / "schema.json").write_text(json.dumps(schema))
+    (tmp / "scenario.json").write_text(body.decode())
+    (tmp / "wrong.json").write_text('{"wrong": 1}')
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rcs = [cli.run(["validate-schema", "-s", str(tmp / "schema.json"), "-j",
+                        str(tmp / name)]) for name in ("scenario.json", "wrong.json")]
+    if rcs != [0, 1]:
+        raise AssertionError(f"CLI validate-schema exit codes {rcs}, expected [0, 1]")
+    _log("CLI in-process: get-schema equals schema_for; validate-schema accepts the scenario "
+         "(0) and rejects {\"wrong\": 1} (1)")
+    return launches
+
+
 #: the phases ``--only`` may name, in the order they run
-PHASES = ("kernels", "pre-curve", "probe", "keccak-f", "curve", "encrypted-share",
-          "finalization", "g1-breakdown", "gpu-cpu", "cli-curve")
+PHASES = ("kernels", "curve", "pre-curve", "probe", "keccak-f", "curve-fault",
+          "encrypted-share", "finalization", "g1-breakdown", "gpu-cpu", "cli-curve", "node")
 
 
 def main(argv=None) -> int:
@@ -1537,9 +1900,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = kernels.build_all()
     _log(f"kernels built in {time.perf_counter() - t0:.3f} s: {', '.join(kernels.KERNEL_SOURCES)}")
-    _log("K1 build report (nvcc -Xptxas -v): " + " | ".join(
-        ln.strip() for ln in kernels.build_log("poseidon2").splitlines()
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln))
+    for name, what in (("poseidon2", "K1"), ("curve", "C1-C4")):
+        _log(f"{what} build report (nvcc -Xptxas -v): " + " | ".join(
+            ln.strip() for ln in kernels.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "stack" in ln))
     work = kernel_work(libs)
     floor_ms = launch_floor_ms()
     _log(f"launch floor (fastest in-place op on a one-element CUDA tensor): {floor_ms:.6f} ms")
@@ -1548,7 +1912,9 @@ def main(argv=None) -> int:
     if "kernels" in only:
         records = [phase_poseidon2(p2), phase_sponge(p2), phase_levels(p2), phase_grind(p2),
                    *phase_keccak(kk, floor_ms), phase_mulchain(probe_vpu, work["mulchain"])]
-        records = [with_floor(rec, floor_ms) for rec in records]
+    if "curve" in only:
+        records += phase_curve_kernels()
+    records = [with_floor(rec, floor_ms) for rec in records]
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         if "pre-curve" in only:
@@ -1560,6 +1926,8 @@ def main(argv=None) -> int:
         com = DkgCommittee(10, 7)
         curve_data = com.shared_data_bad_secret(0, 1, True)
         if "curve" in only:
+            by_path["curve"] = phase_curve_package()
+        if "curve-fault" in only:
             _, by_path["bad-share curve"], by_path["bad-share verify"] = phase_curve_path(
                 "bad-share", curve_data, [256] + [32] * 6, 12, 1)
             _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
@@ -1575,6 +1943,8 @@ def main(argv=None) -> int:
             phase_gpu_equals_cpu()
         if "cli-curve" in only:
             phase_cli_curve(kk, curve_data, Path(tmp))
+        if "node" in only:
+            by_path["node"] = phase_node(Path(tmp))
     if not full:
         _log(f"partial run ({', '.join(p for p in PHASES if p in only)}): every check passed")
         return 0
@@ -1582,7 +1952,7 @@ def main(argv=None) -> int:
     # the fingerprint of the pre-curve path; K2, the permutation's own entry
     # point, since K2b took the fingerprint)
     main_path = {"keccak_f1600": "keccak-f", "keccak_sponge": "bad-share pre-curve",
-                 "mulchain": "probe"}
+                 "mulchain": "probe", **{name: "curve" for name in _CURVE_KERNELS}}
     for rec in records:
         rec["launches"] = by_path[main_path.get(rec["name"], "bad-share curve")][rec["name"]]
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}

@@ -13,7 +13,11 @@ the reference).  Module names mirror the JAX package:
     and the verifier
   * ``prover``  — the proof pipeline, its curve glue, containers and
     ``verify_proof``
-  * ``cli``     — ``prove`` / ``execute`` / ``verify``
+  * ``curve``   — BLS12-381 Fp, G1 (windowed and bucket MSM) and G2, each
+    device algorithm a CUDA kernel beside its plain PyTorch version
+  * ``service`` — the HTTP node (``prove`` / ``execute`` / spec routes)
+  * ``cli``     — ``prove`` / ``execute`` / ``validate-schema`` /
+    ``get-schema`` / ``verify`` / ``node``
   * ``probe_vpu`` — the integer multiply-add probe (a CUDA kernel beside
     its plain PyTorch version)
 

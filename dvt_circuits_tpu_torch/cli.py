@@ -1,18 +1,23 @@
-"""Host CLI of the PyTorch port: ``prove``, ``execute`` and ``verify``.
+"""Host CLI of the PyTorch port: ``prove``, ``execute``, ``validate-schema``,
+``get-schema``, ``verify`` and ``node``.
 
-Port of ``dvt_circuits_tpu/cli.py`` with the same flags (``--setup``,
-``--auth-commitment``, ``--type``, ``-i``, ``-o``, ``--num-queries``,
-``--log-blowup``, ``--pow-bits``, ``--show-report``,
-``--require-curve-binding``) and exit codes (guest panic, a rejected proof
-or any host error → 1), plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path).  ``prove`` and ``verify --show-report`` print the
-artifact fingerprint keccak256(sha256(proof file)) through the Keccak
-kernel.  The schema commands and ``node`` are not ported yet.
+Port of ``dvt_circuits_tpu/cli.py`` with the same subcommands, flags
+(``--setup``, ``--auth-commitment``, ``--type``, ``-i``, ``-o``,
+``--json-schema-file``, ``--num-queries``, ``--log-blowup``,
+``--pow-bits``, ``--show-report``, ``--require-curve-binding``,
+``--schema-type``, ``--port``, ``--host``), the git banner on stderr
+(``DVT_NO_BANNER=1`` turns it off) and exit codes (guest panic, a rejected
+proof, a failed schema validation or any host error → 1), plus
+``--device`` on ``prove``, ``verify`` and ``node`` (default ``cuda``;
+``cpu`` runs the plain PyTorch path).  ``prove`` and ``verify
+--show-report`` print the artifact fingerprint keccak256(sha256(proof
+file)) through the Keccak kernel.
 
     python -m dvt_circuits_tpu_torch.cli --auth-commitment prove \\
         --type=bad-share -i scenario.json -o proof.bin
     python -m dvt_circuits_tpu_torch.cli verify --type=bad-share \\
         -i proof.bin --show-report
+    python -m dvt_circuits_tpu_torch.cli --auth-commitment node --port 8080
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 import sys
 
 from .circuits.registry import CIRCUITS, get_circuit
+from .dkg.schemas import json_schema_for, validate_json, yaml_schema_for
 from .dkg.types import DeserializeError
 from .hash.keccak import keccak256_batch
 from .prover.pipeline import (
@@ -72,6 +78,17 @@ def _read_json(path: str):
             raise CliError(f"Invalid JSON in '{path}': {e}") from None
 
 
+def _validate_if_needed(schema_path, json_path):
+    if schema_path is None:
+        return
+    schema = _read_json(schema_path)
+    data = _read_json(json_path)
+    try:
+        validate_json(schema, data)
+    except Exception as e:
+        raise CliError(f"Schema validation error: {e}") from None
+
+
 def _load_typed(circuit_name: str, path: str, auth: bool, setup: str = "secp-commitment"):
     spec = get_circuit(circuit_name, setup)
     raw = _read_json(path)
@@ -110,6 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("prove", help="generate a proof for an input scenario")
     p.add_argument("--input-file", "-i", required=True)
     p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--json-schema-file", dest="json_schema", default=None)
     p.add_argument("--output-file-path", "-o", default=None)
     p.add_argument("--num-queries", type=int, default=DEFAULT_CONFIG.num_queries)
     p.add_argument("--log-blowup", type=int, default=DEFAULT_CONFIG.log_blowup)
@@ -119,7 +137,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("execute", help="dry-run the witness program")
     p.add_argument("--input-file", "-i", required=True)
     p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--json-schema-file", dest="json_schema", default=None)
     p.add_argument("--show-report", action="store_true", default=False)
+
+    p = sub.add_parser("validate-schema", help="validate a JSON file against a schema")
+    p.add_argument("--schema-file", "-s", required=True)
+    p.add_argument("--json-file", "-j", required=True)
+
+    p = sub.add_parser("get-schema", help="emit the JSON/YAML schema for a circuit input")
+    p.add_argument("--type", dest="subtype", required=True, choices=sorted(CIRCUITS))
+    p.add_argument("--schema-type", choices=["json", "yaml"], required=True)
+    p.add_argument("--output-file-path", "-o", default=None)
 
     p = sub.add_parser("verify", help="verify a saved proof")
     p.add_argument("--input-file", "-i", dest="proof_file", required=True)
@@ -132,6 +160,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="reject share-circuit proofs whose curve relations are "
         "omitted or absent (witness-trust fallback)",
     )
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    p = sub.add_parser("node", help="run the HTTP service (experimental)")
+    p.add_argument("--port", "-a", type=int, required=True)
+    p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
@@ -162,12 +195,48 @@ def _verify(args) -> int:
     return 0
 
 
+def _get_schema(args) -> int:
+    spec = get_circuit(args.subtype)
+    emit = json_schema_for if args.schema_type == "json" else yaml_schema_for
+    text = emit(spec.schema_name, spec.setup.layout, args.auth_commitment)
+    if args.output_file_path:
+        with open(args.output_file_path, "w") as f:
+            f.write(text)
+    else:
+        print(text)
+    return 0
+
+
+def _node(args) -> int:
+    from .service.node import serve
+
+    print(_style_error("WARNING: This is experimental. Don't use this service in production."))
+    print(f"Starting server on port {args.port}")
+    serve(args.host, args.port, args.auth_commitment, args.device)
+    return 0
+
+
 def run(argv=None) -> int:
+    # the git provenance banner goes to stderr, so machine-read stdout
+    # (get-schema) stays clean; DVT_NO_BANNER=1 turns it off
+    if os.environ.get("DVT_NO_BANNER") != "1":
+        from .utils.provenance import print_banner
+
+        print_banner()
     args = build_parser().parse_args(argv)
     auth = args.auth_commitment
     try:
         if args.command == "verify":
             return _verify(args)
+        if args.command == "validate-schema":
+            _validate_if_needed(args.schema_file, args.json_file)
+            print(_style_success("Validation successful. No errors found."))
+            return 0
+        if args.command == "get-schema":
+            return _get_schema(args)
+        if args.command == "node":
+            return _node(args)
+        _validate_if_needed(args.json_schema, args.input_file)
         data = _load_typed(args.subtype, args.input_file, auth, args.setup)
         if args.command == "execute":
             result = execute_circuit(args.subtype, data, auth, args.setup)

@@ -6,34 +6,57 @@ operations (~170 ms → ~5 ms per pairing).  All field constants are computed
 here from the Python source of truth and injected at init — the C++ holds no
 magic numbers.  Falls back silently (returns None) when unavailable or when
 ``DVT_DISABLE_NATIVE=1``.
+
+The library is built into the git-ignored ``build/native/``, named by a hash
+of its source, through a temporary file that ``os.replace`` moves into
+place: processes that build it at once each write their own file, and none
+loads a half-written one (the JAX package's copy builds in place into
+``native/``).  A process that finds no compiler gives up for its lifetime.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 _SRC = _REPO_ROOT / "native" / "bls381.cpp"
-_SO = _REPO_ROOT / "native" / "bls381.so"
+_BUILD_DIR = _REPO_ROOT / "build" / "native"
 
 _lib = None
 _tried = False
+_lock = threading.Lock()
 
 
-def _build() -> bool:
+def _library_path() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"bls381-{digest}.so"
+
+
+def _build(out: Path) -> bool:
+    """Compile the library into ``out`` through a private temporary file."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, prefix=out.stem + ".", suffix=".tmp")
+    os.close(fd)
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", str(_SO), str(_SRC)],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, str(_SRC)],
             check=True,
             capture_output=True,
             timeout=180,
         )
+        os.replace(tmp, out)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _fp_be(x: int) -> bytes:
@@ -45,19 +68,24 @@ def _fp2_be(v) -> bytes:
 
 
 def load():
+    with _lock:
+        return _load_locked()
+
+
+def _load_locked():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if os.environ.get("DVT_DISABLE_NATIVE") == "1":
+    if os.environ.get("DVT_DISABLE_NATIVE") == "1" or not _SRC.exists():
         return None
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        if not _SRC.exists() or not _build():
-            return None
+    so = _library_path()
+    if not so.exists() and not _build(so):
+        return None
     try:
         from . import bls12_381 as b
 
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(so))
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.bls_init.argtypes = [u8p, u8p, u8p, u8p, u8p, ctypes.c_uint64, u8p, ctypes.c_int]
         lib.bls_g1_mul.argtypes = [u8p, ctypes.c_int, u8p, ctypes.c_int, u8p]

@@ -4,6 +4,7 @@ from .pipeline import (
     VerifyResult,
     execute_circuit,
     load_proof,
+    prove_batch,
     prove_circuit,
     save_proof,
     verify_proof,

@@ -12,8 +12,9 @@ transcript, verifies every table and re-runs the SHA-256, curve and
 ChaCha20 bindings.  The container format is the JAX package's
 (``PROOF_FORMAT`` v7): each package verifies the other's containers.
 
-Not ported yet: the legacy wide ``g1`` gadget kind, which no v7 prover
-emits (``VerifyError``).
+``prove_batch`` proves a batch on one device.  Not ported yet: the legacy
+wide ``g1`` gadget kind, which no v7 prover emits (``VerifyError``), and
+``prove_batch`` over a mesh's ``dp`` axis.
 """
 
 from __future__ import annotations
@@ -562,6 +563,20 @@ def _verify_chacha_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConf
             except (UnicodeDecodeError, ValueError):
                 raise VerifyError("chacha ciphertext not bound to the committed stream") from None
         gb += nb
+
+
+def prove_batch(
+    circuit_name: str,
+    datas,
+    auth: bool,
+    config: StarkConfig = DEFAULT_CONFIG,
+    setup: str = "secp-commitment",
+    device="cuda",
+) -> list:
+    """Prove a batch of independent scenarios on one device, one container
+    each, equal to ``prove_circuit``'s one by one (the JAX package's
+    ``prove_batch`` without a mesh)."""
+    return [prove_circuit(circuit_name, d, auth, config, setup, device) for d in datas]
 
 
 def save_proof(container: dict, path: str) -> None:

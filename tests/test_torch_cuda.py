@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from dvt_circuits_tpu_torch import probe_vpu
+from dvt_circuits_tpu_torch.curve import fp, g1, g2
 from dvt_circuits_tpu_torch.hash import keccak
 from dvt_circuits_tpu_torch.hash import poseidon2 as p2
+from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 from dvt_circuits_tpu_torch.stark import TEST_CONFIG, prove_tables, verify
 from dvt_circuits_tpu_torch.stark.airs import FibonacciAir
 
@@ -141,3 +143,66 @@ def test_grind_kernel_matches_plain(card, pos):
     assert want is not None
     assert p2.poseidon2_grind(base, pos, 12, 0, want) is None
     assert p2.poseidon2_grind(base, pos, 12, max(want - 5, 0), 11) == want
+
+
+@pytest.mark.parametrize("n", [1, 1000])
+def test_fp_mont_mul_kernel_matches_plain(card, n):
+    rng = np.random.default_rng(n)
+    vals = [int.from_bytes(rng.bytes(48), "big") % host.P for _ in range(n)]
+    vals += [0, 1, host.P - 1, host.P - 2]
+    a = torch.as_tensor(np.stack([fp.int_to_limbs(v) for v in vals]), device=card)
+    b = a.flip(0)
+    before = fp.mont_mul.launches
+    got = fp.mont_mul(a, b)
+    assert fp.mont_mul.launches == before + 1
+    assert torch.equal(got, fp.mont_mul_plain(a, b))
+
+
+def _edge_batch(rng):
+    """Zero scalars, identity points, a repeated point and a P / -P pair."""
+    pts = [host.g1_mul(host.G1_GEN, 7 * i + 3) for i in range(4)]
+    points = [None, pts[0], pts[1], pts[1], pts[2], host.g1_neg(pts[2]), pts[3], host.G1_GEN]
+    scalars = [5, 0, 7, 7, 11, 11, int.from_bytes(rng.bytes(32), "big") % host.R, host.R - 1]
+    want = None
+    for p, s in zip(points, scalars):
+        want = host.g1_add(want, host.g1_mul(p, s) if p else None)
+    return points, scalars, want
+
+
+def test_g1_msm_windowed_kernel_matches_plain(card):
+    points, scalars, want = _edge_batch(np.random.default_rng(1))
+    p = g1.from_affine_points(points, card)
+    digits = g1.scalars_to_digits(scalars, card)
+    before = g1.msm_jacobian.launches
+    got = g1.msm_jacobian(p, digits)
+    assert g1.msm_jacobian.launches == before + 1
+    # the kernel pairs the additions as the JAX tree does: the same limbs
+    for a, b in zip(got, g1.msm_plain(p, digits)):
+        assert torch.equal(a, b)
+    assert g1.msm(points, scalars, device=card) == want
+
+
+@pytest.mark.parametrize("window_bits", [2, 4, 8])
+def test_g1_msm_bucket_kernel_matches_host(card, window_bits):
+    points, scalars, want = _edge_batch(np.random.default_rng(window_bits))
+    before = g1.msm_bucket_jacobian.launches
+    assert g1.msm_bucket(points, scalars, window_bits, device=card) == want
+    assert g1.msm_bucket_jacobian.launches == before + 1
+    p, digits = g1.bucket_inputs(points, scalars, window_bits, card)
+    plain = g1.msm_bucket_plain(p, digits, window_bits)
+    assert g1.to_affine_points(tuple(c[None] for c in plain))[0] == want
+
+
+def test_g2_scalar_mul_kernel_matches_plain(card):
+    rng = np.random.default_rng(4)
+    points = [host.g2_mul(host.G2_GEN, k) for k in (3, 7)] + [None]
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(2)] + [5]
+    p = g2.from_host_points(points, card)
+    bits = g1.scalars_to_bits(scalars, card)
+    before = g2.scalar_mul.launches
+    got = g2.scalar_mul(p, bits)
+    assert g2.scalar_mul.launches == before + 1
+    for a, b in zip(got, g2.scalar_mul_plain(p, bits)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert g2.to_host_points(got) == [host.g2_mul(q, s) if q else None
+                                      for q, s in zip(points, scalars)]
