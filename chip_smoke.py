@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every kernel from ``dvt_circuits_tpu_torch/csrc`` (one nvcc per
-     source, in parallel); print K1's register report and each K1 and K2
-     kernel's static integer instructions in the SASS (a diagnostic of the
-     design); count K3's (K3 must hold at least 512 IMAD per element: its
+     source, in parallel); print K1's register report, each curve
+     kernel's registers and stack (``cuobjdump --dump-resource-usage``) and
+     each K1 and K2 kernel's static integer instructions in the SASS (a
+     diagnostic of the design); count K3's (K3 must hold at least 512 IMAD per element: its
      chain is not folded);
   3. K1a (the Poseidon2 permutation): kernel vs plain PyTorch on 2^20
      random states plus all-0 / all-(p−1) rows and at the prover's shapes,
@@ -39,13 +40,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      equal to the host oracle on an edge batch (zero scalars, an identity,
      a repeated point, P and −P; C3 at w = 2, 4, 8) and at bench.py's 1,024
      and 4,096 points (P_i = (7i + 3)·G, so the oracle is one host scalar
-     multiplication), C2's Jacobian limbs equal to ``msm_plain``'s and C3's
-     plain version equal to the oracle at both sizes; C4 (the G2 scalar
-     multiplication) limb-equal to ``scalar_mul_plain`` and equal to the
-     host ``g2_mul`` on 16 points; each timed against its plain version
-     and its bound; then the curve path: ``msm`` and ``msm_bucket`` at 4,096
-     points, ``g2.scalar_mul`` and ``g1.add``/``double`` (products through
-     C1) with the launch counts reset;
+     multiplication), C2's Jacobian limbs equal to ``msm_plain``'s; C3 also
+     on 4,096 points of one scalar, its four stages (C3a the sort, C3b the
+     bucket sums, C3c the window sums, C3d the Horner) each equal to its
+     plain stage (``msm_bucket_plain``'s limbs) and the same in a second
+     run, each stage timed; C4 (the
+     G2 scalar multiplication) limb-equal to ``scalar_mul_plain`` and equal
+     to the host ``g2_mul`` on 16 points; each timed against its plain
+     version and its bound; then the curve path: ``msm`` and ``msm_bucket``
+     at 4,096 points (``msm_bucket``'s wall time split into its host input,
+     C3's kernels and its host output), ``g2.scalar_mul`` and
+     ``g1.add``/``double`` (products through C1) with the launch counts
+     reset;
   6. the pre-curve bad-share path: ``prove_circuit("bad-share")`` at
      ``DEFAULT_CONFIG`` for a 7-of-10 committee whose seed exchange names a
      destination outside the committee (the guest slashes before the
@@ -250,6 +256,28 @@ def _sass_functions(lib) -> dict:
         for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     return funcs
+
+
+def resource_usage(lib) -> dict:
+    """Each kernel's registers, stack frame, local and shared bytes as
+    ``cuobjdump --dump-resource-usage`` reports them: {kernel: {"REG": ...,
+    "STACK": ..., "LOCAL": ..., "SHARED": ...}}, kernels by their source
+    name."""
+    from dvt_circuits_tpu_torch import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-resource-usage", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    usage = {}
+    for name, fields in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", out):
+        key = name
+        if "_kernel" in name:  # the mangled name's last part: <length><name>
+            end = name.index("_kernel") + len("_kernel")
+            start = next((end - n for n in range(len("_kernel") + 1, end)
+                          if name[:end - n].endswith(str(n))), 0)
+            key = name[start:end]
+        usage[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL|SHARED):(\d+)", fields)}
+    return usage
 
 
 def _sass_opcodes(lib) -> dict:
@@ -873,6 +901,8 @@ def _wrappers() -> dict:
             "fp_mont_mul": fp.mont_mul,
             "g1_msm_windowed": g1.msm_jacobian,
             "g1_msm_bucket": g1.msm_bucket_jacobian,
+            # C3's four stages, each counted where it launches
+            **g1.stage_counts,
             "g2_scalar_mul": g2.scalar_mul}
 
 
@@ -1593,10 +1623,28 @@ def _limb_err(a, b) -> int:
     return int((a - b).abs().max())
 
 
-def _bench_points(n: int):
+def _words_to_limbs(words):
+    """The kernels' scratch points ((..., 36) int32: x, y, z as 12 words of
+    32 bits each) as Jacobian limb tensors ((..., 32) int64 per coordinate)."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    coords = []
+    for c in range(3):
+        limbs = []
+        for i in range(32):
+            word, off = divmod(12 * i, 32)
+            v = w[..., 12 * c + word] >> off
+            if off > 20:
+                v = v | (w[..., 12 * c + word + 1] << (32 - off))
+            limbs.append(v & 0xFFF)
+        coords.append(torch.stack(limbs, -1))
+    return tuple(coords)
+
+
+def _bench_points(n: int, equal: bool = False):
     """bench.py's MSM input: P_i = (7i + 3)·G (by additions of 7G) and random
-    256-bit scalars from numpy; the host oracle is one scalar multiplication
-    (Σ s_i (7i + 3) mod r)·G."""
+    256-bit scalars from numpy (with ``equal``, one random scalar for every
+    point: each window's points then share one bucket); the host oracle is
+    one scalar multiplication (Σ s_i (7i + 3) mod r)·G."""
     from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 
     rng = np.random.default_rng(SEED + 20 + n)
@@ -1604,7 +1652,8 @@ def _bench_points(n: int):
     points = [host.g1_mul(host.G1_GEN, 3)]
     for _ in range(n - 1):
         points.append(host.g1_add(points[-1], step))
-    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(1 if equal else n)]
+    scalars = scalars * n if equal else scalars
     want = host.g1_mul(host.G1_GEN, sum(s * (7 * i + 3) for i, s in enumerate(scalars)) % host.R)
     return points, scalars, want
 
@@ -1640,6 +1689,88 @@ def _bucket_products(digits, window_bits: int) -> int:
     nwin = digits.shape[1]
     adds = int((digits != 0).sum()) + nwin * 2 * ((1 << window_bits) - 1) + (nwin - 1)
     return adds * G1_ADD_MULS + (nwin - 1) * window_bits * G1_DBL_MULS
+
+
+#: C3's stages C3a-C3d, in launch order (``g1._bucket_launches``)
+C3_STAGES = ("g1_bucket_sort", "g1_bucket_sums", "g1_window_sums", "g1_horner")
+
+
+def _bucket_stage_work(digits, window_bits: int) -> dict:
+    """Each C3 stage's share of ``_bucket_products`` (Fp products) and the
+    bytes it must move: the sort reads the digits and writes the order, the
+    bucket sums read the points and write the bucket sums, the window sums
+    read those and write one point per window, the Horner reads those and
+    writes the result.  The products add up to ``_bucket_products``."""
+    m, nwin = digits.shape
+    nb = (1 << window_bits) - 1
+    point = 3 * 12 * 4  # a G1 point in the kernels' scratch
+    return {
+        "g1_bucket_sort": (0, 2 * m * nwin * 4 + nwin * (nb + 2) * 4),
+        "g1_bucket_sums": (int((digits != 0).sum()) * G1_ADD_MULS,
+                           m * (3 * FP_BYTES + nwin * 4) + nwin * nb * point),
+        "g1_window_sums": (nwin * 2 * nb * G1_ADD_MULS, nwin * (nb + 1) * point),
+        "g1_horner": ((nwin - 1) * (G1_ADD_MULS + window_bits * G1_DBL_MULS),
+                      nwin * point + 3 * FP_BYTES),
+    }
+
+
+def _c3_records(label: str, points, scalars, want) -> list:
+    """C3 on one batch at ``msm_bucket``'s window: equal to the host oracle,
+    its Jacobian limbs equal to the staged plain version's and the same in a
+    second run; the whole call and each stage timed (CUDA events) against
+    its plain stage and bound."""
+    from dvt_circuits_tpu_torch.curve import g1
+
+    n = len(points)
+    w = g1.default_window_bits(n)
+    t0 = time.perf_counter()
+    pb, db = g1.bucket_inputs(points, scalars, w, "cuda")
+    _log(f"C3 input at {label}: bucket_inputs {time.perf_counter() - t0:.3f} s")
+    got = g1.msm_bucket_jacobian(pb, db, w)
+    again = g1.msm_bucket_jacobian(pb, db, w)
+    if g1.to_affine_points(tuple(c[None] for c in got))[0] != want:
+        raise AssertionError(f"C3 at {label} differs from the host oracle")
+    if _limb_err(got, again):
+        raise AssertionError(f"C3 at {label}: two runs gave different Jacobian limbs")
+    ms = _time_ms(lambda: g1.msm_bucket_jacobian(pb, db, w), 5, warmup=1)
+    # the plain stages one by one, each timed, then the kernel's stages
+    (idx, offsets), sort_ms = _cuda_ms(lambda: g1.bucket_sort_plain(db, w))
+    buckets, sums_ms = _cuda_ms(lambda: g1.bucket_sums_plain(pb, db, idx, offsets, w))
+    windows, win_ms = _cuda_ms(lambda: g1.window_sums_plain(buckets, w))
+    plain, horner_ms = _cuda_ms(lambda: g1.horner_plain(windows, w))
+    err = _limb_err(got, plain)
+    if err:
+        raise AssertionError(f"C3 at {label}: Jacobian limbs differ from msm_bucket_plain's")
+    plain_ms = {"g1_bucket_sort": sort_ms, "g1_bucket_sums": sums_ms,
+                "g1_window_sums": win_ms, "g1_horner": horner_ms}
+    launches, bufs = g1._bucket_launches(pb, db, w)
+    for launch in launches.values():
+        launch()
+    errs = {"g1_bucket_sort": max(_limb_err(bufs["idx"], idx), _limb_err(bufs["offsets"], offsets)),
+            "g1_bucket_sums": _limb_err(_words_to_limbs(bufs["buckets"]), buckets),
+            "g1_window_sums": _limb_err(_words_to_limbs(bufs["windows"]), windows),
+            "g1_horner": _limb_err(tuple(bufs["out"]), plain)}
+    if any(errs.values()):
+        raise AssertionError(f"C3 at {label}: a stage differs from its plain version: {errs}")
+    stage_ms = {name: _time_ms(launches[name], 5, warmup=1) for name in C3_STAGES}
+    work = _bucket_stage_work(db, w)
+    bound = curve_bound_ms(_bucket_products(db, w),
+                           db.shape[0] * (3 * FP_BYTES + db.shape[1] * 4) + 3 * FP_BYTES)
+    _log(f"C3 at {label} (m = {db.shape[0]}, w = {w}, {db.shape[1]} windows): equals the "
+         f"oracle, Jacobian limbs equal msm_bucket_plain's and the same in two runs; "
+         f"{ms:.6f} ms (4 device launches a call), plain {sum(plain_ms.values()):.3f} ms, "
+         f"bound {bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3e}; stages "
+         + ", ".join(f"C3{'abcd'[k]} {name} {stage_ms[name]:.6f} ms (plain {plain_ms[name]:.3f})"
+                     for k, name in enumerate(C3_STAGES)))
+    shape = (n, "equal scalars") if "equal" in label else (n,)
+    records = [_curve_record("g1_msm_bucket", "dvt_circuits_tpu/curve/g1.py:341", shape, err, ms,
+                             sum(plain_ms.values()), bound)]
+    for name in C3_STAGES:
+        rec = _curve_record(name, "dvt_circuits_tpu/curve/g1.py:341", shape, errs[name],
+                            stage_ms[name], plain_ms[name], curve_bound_ms(*work[name]))
+        rec["stage_of"] = "g1_msm_bucket"
+        records.append(rec)
+    return records
 
 
 def phase_curve_kernels():
@@ -1686,38 +1817,25 @@ def phase_curve_kernels():
         points, scalars, want = _bench_points(n)
         p = g1.from_affine_points(points, "cuda")
         digits = g1.scalars_to_digits(scalars, "cuda")
-        w = g1.default_window_bits(n)
-        pb, db = g1.bucket_inputs(points, scalars, w, "cuda")
         _log(f"MSM input of {n} points and the host oracle: {time.perf_counter() - t0:.3f} s")
         got2 = g1.msm_jacobian(p, digits)
-        got3 = g1.msm_bucket_jacobian(pb, db, w)
-        for name, got in (("C2", got2), ("C3", got3)):
-            if g1.to_affine_points(tuple(c[None] for c in got))[0] != want:
-                raise AssertionError(f"{name} at {n} points differs from the host oracle")
+        if g1.to_affine_points(tuple(c[None] for c in got2))[0] != want:
+            raise AssertionError(f"C2 at {n} points differs from the host oracle")
         ms2 = _time_ms(lambda: g1.msm_jacobian(p, digits), 3, warmup=1)
-        ms3 = _time_ms(lambda: g1.msm_bucket_jacobian(pb, db, w), 3, warmup=1)
         plain2, plain2_ms = _cuda_ms(lambda: g1.msm_plain(p, digits))
         err2 = _limb_err(got2, plain2)
         if err2:
             raise AssertionError(f"C2 at {n} points: Jacobian limbs differ from msm_plain")
-        plain3, plain3_ms = _cuda_ms(lambda: g1.msm_bucket_plain(pb, db, w))
-        if g1.to_affine_points(tuple(c[None] for c in plain3))[0] != want:
-            raise AssertionError(f"msm_bucket_plain at {n} points differs from the oracle")
         bound2 = curve_bound_ms(_windowed_products(digits),
                                 n * (3 * FP_BYTES + 64 * 4) + 3 * FP_BYTES)
-        bound3 = curve_bound_ms(_bucket_products(db, w),
-                                db.shape[0] * (3 * FP_BYTES + db.shape[1] * 4) + 3 * FP_BYTES)
         _log(f"C2 g1_msm_windowed at {n} points: equals the oracle, Jacobian limbs equal "
              f"msm_plain's; {ms2:.6f} ms (2 device launches a call), plain {plain2_ms:.3f} ms, "
              f"bound {bound2[0]:.6f} ms ({bound2[1]}), share {bound2[0] / ms2:.3e}")
-        _log(f"C3 g1_msm_bucket at {n} points (m = {db.shape[0]}, w = {w}, {db.shape[1]} "
-             f"windows): equals the oracle, as does msm_bucket_plain; {ms3:.6f} ms (3 device "
-             f"launches a call), plain {plain3_ms:.3f} ms, bound {bound3[0]:.6f} ms "
-             f"({bound3[1]}), share {bound3[0] / ms3:.3e}")
         records.append(_curve_record("g1_msm_windowed", "dvt_circuits_tpu/curve/g1.py:214",
                                      (n,), err2, ms2, plain2_ms, bound2))
-        records.append(_curve_record("g1_msm_bucket", "dvt_circuits_tpu/curve/g1.py:341",
-                                     (n,), 0, ms3, plain3_ms, bound3))
+        records += _c3_records(f"{n} points", points, scalars, want)
+    points, scalars, want = _bench_points(MSM_POINTS[-1], equal=True)
+    records += _c3_records(f"{MSM_POINTS[-1]} points, equal scalars", points, scalars, want)
 
     # -- C4: G2 points, one of them the identity ------------------------------
     rng = np.random.default_rng(SEED + 11)
@@ -1745,7 +1863,8 @@ def phase_curve_kernels():
     return records
 
 
-_CURVE_KERNELS = ("fp_mont_mul", "g1_msm_windowed", "g1_msm_bucket", "g2_scalar_mul")
+_CURVE_KERNELS = ("fp_mont_mul", "g1_msm_windowed", "g1_msm_bucket", "g2_scalar_mul",
+                  *C3_STAGES)
 
 
 def phase_curve_package() -> dict:
@@ -1762,7 +1881,9 @@ def phase_curve_package() -> dict:
     _reset_counts()
     t0 = time.perf_counter()
     windowed = g1.msm(points, scalars, device="cuda")
+    t1 = time.perf_counter()
     bucket = g1.msm_bucket(points, scalars, device="cuda")
+    bucket_s = time.perf_counter() - t1
     g2_got = g2.to_host_points(g2.scalar_mul(g2.from_host_points(g2_points, "cuda"),
                                              g1.scalars_to_bits(scalars[:G2_POINTS], "cuda")))
     p = g1.from_affine_points(small, "cuda")
@@ -1776,6 +1897,22 @@ def phase_curve_package() -> dict:
         raise AssertionError("g2.scalar_mul differs from the host g2_mul")
     if summed != [host.g1_mul(q, 3) for q in small]:
         raise AssertionError("g1.add(P, g1.double(P)) differs from the host 3·P")
+    # msm_bucket's wall time split: the host input, the kernels, the host output
+    t0 = time.perf_counter()
+    w = g1.default_window_bits(len(points))
+    pb, db = g1.bucket_inputs(points, scalars, w, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = g1.msm_bucket_jacobian(pb, db, w)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    split = g1.to_affine_points(tuple(c[None] for c in out))[0]
+    t3 = time.perf_counter()
+    if split != want:
+        raise AssertionError("msm_bucket's stages, called one by one, differ from the oracle")
+    _log(f"curve path: msm_bucket at {len(points)} points {bucket_s:.3f} s; called stage by "
+         f"stage: bucket_inputs (host GLV split, digits, limbs) {t1 - t0:.3f} s, C3's kernels "
+         f"{t2 - t1:.6f} s, to_affine_points {t3 - t2:.6f} s")
     _log(f"curve path: msm and msm_bucket at {len(points)} points, g2.scalar_mul on "
          f"{len(g2_points)}, g1.add and g1.double on {len(small)} in {wall_s:.3f} s (host input and output included); each equals "
          f"the host")
@@ -1903,7 +2040,11 @@ def main(argv=None) -> int:
     for name, what in (("poseidon2", "K1"), ("curve", "C1-C4")):
         _log(f"{what} build report (nvcc -Xptxas -v): " + " | ".join(
             ln.strip() for ln in kernels.build_log(name).splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "stack" in ln))
+            if any(key in ln for key in ("registers", "spill", "Compiling entry", "stack",
+                                         "Function properties"))))
+    for kernel, use in sorted(resource_usage(libs["curve"]).items()):
+        _log(f"C1-C4 resource usage (cuobjdump) {kernel}: REG {use['REG']} STACK {use['STACK']} "
+             f"LOCAL {use['LOCAL']} SHARED {use['SHARED']}")
     work = kernel_work(libs)
     floor_ms = launch_floor_ms()
     _log(f"launch floor (fastest in-place op on a one-element CUDA tensor): {floor_ms:.6f} ms")

@@ -18,9 +18,14 @@
 // computes), double is dbl-2009-l (7), and add selects its special cases in
 // the JAX order, so a kernel that runs the JAX algorithm's additions in its
 // order writes its Jacobian limbs.
-// Field products and point operations are __noinline__: a point addition
-// inlined everywhere made kernels of tens of thousands of instructions that
-// miss the instruction cache and take minutes in ptxas.
+//
+// Every operation takes and returns its elements by value, so the
+// product's operands, accumulator and result stay in registers (C1's
+// kernel has no stack frame); passed by reference, an out-of-line call
+// needs its operands' addresses, so its caller keeps every operand in its
+// stack frame.  The product and the point operations stay out of line:
+// inlined, a point addition made kernels of tens of thousands of
+// instructions that miss the instruction cache and take minutes in ptxas.
 #pragma once
 
 #include <cstdint>
@@ -57,14 +62,18 @@ using G2 = Jac<Fp2>;
 
 // -- Fp ----------------------------------------------------------------------
 
-__device__ __forceinline__ void set_zero(Fp& r) {
+__device__ __forceinline__ Fp fp_zero() {
+  Fp r;
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = 0;
+  return r;
 }
 
-__device__ __forceinline__ void set_one(Fp& r) {
+__device__ __forceinline__ Fp fp_one() {
+  Fp r;
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = kOne[i];
+  return r;
 }
 
 __device__ __forceinline__ bool is_zero(const Fp& a) {
@@ -74,8 +83,8 @@ __device__ __forceinline__ bool is_zero(const Fp& a) {
   return acc == 0;
 }
 
-// r = s - p if s >= p, else s (s < 2p)
-__device__ __forceinline__ void reduce_once(Fp& r, const uint32_t (&s)[NW]) {
+// s - p if s >= p, else s (s < 2p)
+__device__ __forceinline__ Fp reduce_once(const uint32_t (&s)[NW]) {
   uint32_t d[NW];
   uint64_t borrow = 0;
 #pragma unroll
@@ -84,11 +93,13 @@ __device__ __forceinline__ void reduce_once(Fp& r, const uint32_t (&s)[NW]) {
     d[i] = static_cast<uint32_t>(t);
     borrow = (t >> 32) & 1;
   }
+  Fp r;
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = borrow ? s[i] : d[i];
+  return r;
 }
 
-__device__ __forceinline__ void add(Fp& r, const Fp& a, const Fp& b) {
+__device__ __forceinline__ Fp add(const Fp& a, const Fp& b) {
   uint32_t s[NW];
   uint64_t carry = 0;  // a + b < 2p < 2^383: no carry out of the top word
 #pragma unroll
@@ -97,10 +108,10 @@ __device__ __forceinline__ void add(Fp& r, const Fp& a, const Fp& b) {
     s[i] = static_cast<uint32_t>(t);
     carry = t >> 32;
   }
-  reduce_once(r, s);
+  return reduce_once(s);
 }
 
-__device__ __forceinline__ void sub(Fp& r, const Fp& a, const Fp& b) {
+__device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
   uint32_t d[NW];
   uint64_t borrow = 0;
 #pragma unroll
@@ -110,6 +121,7 @@ __device__ __forceinline__ void sub(Fp& r, const Fp& a, const Fp& b) {
     borrow = (t >> 32) & 1;
   }
   // a < b: the difference wrapped by 2^384; adding p brings it back
+  Fp r;
   uint64_t carry = 0;
   const uint32_t mask = borrow ? 0xffffffffu : 0u;
 #pragma unroll
@@ -118,10 +130,14 @@ __device__ __forceinline__ void sub(Fp& r, const Fp& a, const Fp& b) {
     r.w[i] = static_cast<uint32_t>(t);
     carry = t >> 32;
   }
+  return r;
 }
 
-// r = a * b * 2^-384 mod p, in [0, p): CIOS, one word of b per round
-__device__ __noinline__ void mul(Fp& r, const Fp& a, const Fp& b) {
+// a * b * 2^-384 mod p, in [0, p): CIOS, one word of b per round, with
+// 64-bit accumulators (IMAD.WIDE).  Each round is a chain of dependent
+// carries: the latency that sets the time of every one-thread point
+// operation.
+__device__ __noinline__ Fp mul(Fp a, Fp b) {
   uint32_t t[NW + 2];
 #pragma unroll
   for (int j = 0; j < NW + 2; ++j) t[j] = 0;
@@ -155,93 +171,75 @@ __device__ __noinline__ void mul(Fp& r, const Fp& a, const Fp& b) {
   uint32_t s[NW];
 #pragma unroll
   for (int j = 0; j < NW; ++j) s[j] = t[j];
-  reduce_once(r, s);
+  return reduce_once(s);
 }
+
+__device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
 
 // -- Fp2 ---------------------------------------------------------------------
 
-__device__ __forceinline__ void set_zero(Fp2& r) {
-  set_zero(r.c0);
-  set_zero(r.c1);
-}
+__device__ __forceinline__ Fp2 fp2_zero() { return {fp_zero(), fp_zero()}; }
 
-__device__ __forceinline__ void set_one(Fp2& r) {
-  set_one(r.c0);
-  set_zero(r.c1);
-}
+__device__ __forceinline__ Fp2 fp2_one() { return {fp_one(), fp_zero()}; }
 
 __device__ __forceinline__ bool is_zero(const Fp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
 
-__device__ __forceinline__ void add(Fp2& r, const Fp2& a, const Fp2& b) {
-  add(r.c0, a.c0, b.c0);
-  add(r.c1, a.c1, b.c1);
+__device__ __forceinline__ Fp2 add(const Fp2& a, const Fp2& b) {
+  return {add(a.c0, b.c0), add(a.c1, b.c1)};
 }
 
-__device__ __forceinline__ void sub(Fp2& r, const Fp2& a, const Fp2& b) {
-  sub(r.c0, a.c0, b.c0);
-  sub(r.c1, a.c1, b.c1);
+__device__ __forceinline__ Fp2 sub(const Fp2& a, const Fp2& b) {
+  return {sub(a.c0, b.c0), sub(a.c1, b.c1)};
 }
 
 // Karatsuba, 3 base products (g2.py:f2_mul)
-__device__ __noinline__ void mul(Fp2& r, const Fp2& a, const Fp2& b) {
-  Fp t0, t1, t2, sa, sb;
-  mul(t0, a.c0, b.c0);
-  mul(t1, a.c1, b.c1);
-  add(sa, a.c0, a.c1);
-  add(sb, b.c0, b.c1);
-  mul(t2, sa, sb);
-  sub(r.c0, t0, t1);
-  sub(t2, t2, t0);
-  sub(r.c1, t2, t1);
+__device__ __noinline__ Fp2 mul(Fp2 a, Fp2 b) {
+  const Fp t0 = mul(a.c0, b.c0);
+  const Fp t1 = mul(a.c1, b.c1);
+  const Fp t2 = mul(add(a.c0, a.c1), add(b.c0, b.c1));
+  return {sub(t0, t1), sub(sub(t2, t0), t1)};
 }
 
 // (c0 + c1 u)^2 = (c0 + c1)(c0 - c1) + 2 c0 c1 u, 2 base products (g2.py:f2_sq)
-__device__ __noinline__ void sqr(Fp2& r, const Fp2& a) {
-  Fp s, d, t1;
-  add(s, a.c0, a.c1);
-  sub(d, a.c0, a.c1);
-  mul(t1, a.c0, a.c1);
-  mul(r.c0, s, d);
-  add(r.c1, t1, t1);
+__device__ __noinline__ Fp2 sqr(Fp2 a) {
+  const Fp t1 = mul(a.c0, a.c1);
+  return {mul(add(a.c0, a.c1), sub(a.c0, a.c1)), add(t1, t1)};
 }
-
-__device__ __forceinline__ void sqr(Fp& r, const Fp& a) { mul(r, a, a); }
 
 // -- Jacobian points, a = 0 ---------------------------------------------------
 
 template <class F>
-__device__ __forceinline__ void set_identity(Jac<F>& p) {
-  set_zero(p.x);
-  set_one(p.y);
-  set_zero(p.z);
+__device__ __forceinline__ Jac<F> identity();
+
+template <>
+__device__ __forceinline__ G1 identity<Fp>() {
+  return {fp_zero(), fp_one(), fp_zero()};
+}
+
+template <>
+__device__ __forceinline__ G2 identity<Fp2>() {
+  return {fp2_zero(), fp2_one(), fp2_zero()};
 }
 
 // dbl-2009-l as g1.py:double writes it; the identity maps to Z = 0
 template <class F>
-__device__ __noinline__ void dbl(Jac<F>& r, const Jac<F>& p) {
-  F A, B, C, t, D, E, Fv, u;
-  sqr(A, p.x);
-  sqr(B, p.y);
-  sqr(C, B);
-  add(t, p.x, B);
-  sqr(t, t);
-  sub(D, t, A);
-  sub(D, D, C);
-  add(D, D, D);  // 2((X + B)^2 - A - C)
-  add(E, A, A);
-  add(E, E, A);
-  sqr(Fv, E);
-  F Z3;
-  mul(Z3, p.y, p.z);
-  add(r.z, Z3, Z3);
-  add(u, D, D);
-  sub(r.x, Fv, u);
-  sub(u, D, r.x);
-  mul(u, E, u);
-  add(C, C, C);
-  add(C, C, C);
-  add(C, C, C);
-  sub(r.y, u, C);
+__device__ __noinline__ Jac<F> dbl(Jac<F> p) {
+  const F A = sqr(p.x);
+  const F B = sqr(p.y);
+  F C = sqr(B);
+  F D = sub(sub(sqr(add(p.x, B)), A), C);
+  D = add(D, D);  // 2((X + B)^2 - A - C)
+  const F E = add(add(A, A), A);
+  const F Fv = sqr(E);
+  Jac<F> r;
+  const F yz = mul(p.y, p.z);
+  r.z = add(yz, yz);
+  r.x = sub(Fv, add(D, D));
+  C = add(C, C);
+  C = add(C, C);
+  C = add(C, C);
+  r.y = sub(mul(E, sub(D, r.x)), C);
+  return r;
 }
 
 // add-2007-bl as g1.py:add writes it, branch-free as it is there: every
@@ -253,52 +251,35 @@ __device__ __noinline__ void dbl(Jac<F>& r, const Jac<F>& p) {
 // again faulted on the H100 (an illegal address with 32 lanes a warp, none
 // with one); here all lanes make the same calls.
 template <class F>
-__device__ __noinline__ void add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
-  F z1z1, z2z2, u1, u2, s1, s2, h, rr, t, i, j, v;
-  sqr(z1z1, p.z);
-  sqr(z2z2, q.z);
-  mul(u1, p.x, z2z2);
-  mul(u2, q.x, z1z1);
-  mul(s1, p.y, q.z);
-  mul(s1, s1, z2z2);
-  mul(s2, q.y, p.z);
-  mul(s2, s2, z1z1);
-  sub(h, u2, u1);
-  sub(rr, s2, s1);
-  add(rr, rr, rr);  // r = 2(S2 - S1)
-  add(t, h, h);
-  sqr(i, t);
-  mul(j, h, i);
-  mul(v, u1, i);
+__device__ __noinline__ Jac<F> add(Jac<F> p, Jac<F> q) {
+  const F z1z1 = sqr(p.z), z2z2 = sqr(q.z);
+  const F u1 = mul(p.x, z2z2), u2 = mul(q.x, z1z1);
+  F s1 = mul(mul(p.y, q.z), z2z2);
+  const F s2 = mul(mul(q.y, p.z), z1z1);
+  const F h = sub(u2, u1);
+  F rr = sub(s2, s1);
+  rr = add(rr, rr);  // r = 2(S2 - S1)
+  const F i = sqr(add(h, h));
+  const F j = mul(h, i), v = mul(u1, i);
   Jac<F> o;
-  sqr(o.x, rr);
-  sub(o.x, o.x, j);
-  add(t, v, v);
-  sub(o.x, o.x, t);
-  mul(s1, s1, j);
-  add(s1, s1, s1);
-  sub(t, v, o.x);
-  mul(o.y, rr, t);
-  sub(o.y, o.y, s1);
-  add(t, p.z, q.z);
-  sqr(t, t);
-  sub(t, t, z1z1);
-  sub(t, t, z2z2);
-  mul(o.z, t, h);
-  Jac<F> d;
-  dbl(d, p);
+  o.x = sub(sub(sqr(rr), j), add(v, v));
+  s1 = mul(s1, j);
+  o.y = sub(mul(rr, sub(v, o.x)), add(s1, s1));
+  o.z = mul(sub(sub(sqr(add(p.z, q.z)), z1z1), z2z2), h);
+  const Jac<F> d = dbl(p);
   const bool p_inf = is_zero(p.z), q_inf = is_zero(q.z);
   const bool same_x = is_zero(h), same_y = is_zero(rr);
   if (same_x && same_y) o = d;
-  if (same_x && !same_y && !p_inf && !q_inf) set_identity(o);
+  if (same_x && !same_y && !p_inf && !q_inf) o = identity<F>();
   if (q_inf) o = p;
   if (p_inf) o = q;
-  r = o;
+  return o;
 }
 
 // -- the port's int64 layout: 32 limbs of 12 bits per element ------------------
 
-__device__ __forceinline__ void load(Fp& r, const int64_t* limbs) {
+__device__ __forceinline__ Fp load(const int64_t* limbs) {
+  Fp r;
   uint64_t acc = 0;
   int bits = 0, w = 0;
 #pragma unroll
@@ -311,6 +292,7 @@ __device__ __forceinline__ void load(Fp& r, const int64_t* limbs) {
       bits -= 32;
     }
   }
+  return r;
 }
 
 __device__ __forceinline__ void store(int64_t* limbs, const Fp& a) {
@@ -323,9 +305,8 @@ __device__ __forceinline__ void store(int64_t* limbs, const Fp& a) {
   }
 }
 
-__device__ __forceinline__ void load(Fp2& r, const int64_t* limbs) {
-  load(r.c0, limbs);
-  load(r.c1, limbs + NLIMBS);
+__device__ __forceinline__ Fp2 load2(const int64_t* limbs) {
+  return {load(limbs), load(limbs + NLIMBS)};
 }
 
 __device__ __forceinline__ void store(int64_t* limbs, const Fp2& a) {
@@ -342,27 +323,30 @@ constexpr int NUM_WINDOWS = SCALAR_BITS / WINDOW_BITS;
 // g1.py:scalar_mul_windowed for one point: T[j] = j*P by 14 additions, then
 // 64 base-16 digits MSB-first, 4 doublings and one table addition each (a
 // zero digit adds T[0], the identity, as the JAX loop does: where the
-// accumulator is still the identity that returns T[0]'s limbs)
-__device__ __noinline__ void windowed_mul(G1& acc, const G1& p, const int32_t* digits) {
+// accumulator is still the identity that returns T[0]'s limbs).  The table
+// is indexed by the digit, so it lives in local memory.
+__device__ __noinline__ G1 windowed_mul(G1 p, const int32_t* digits) {
   G1 table[16];
-  set_identity(table[0]);
+  table[0] = identity<Fp>();
   table[1] = p;
-  for (int j = 2; j < 16; ++j) add(table[j], table[j - 1], p);
-  set_identity(acc);
+  for (int j = 2; j < 16; ++j) table[j] = add(table[j - 1], p);
+  G1 acc = identity<Fp>();
   for (int w = 0; w < NUM_WINDOWS; ++w) {
-    for (int k = 0; k < WINDOW_BITS; ++k) dbl(acc, acc);
-    add(acc, acc, table[digits[w]]);
+    for (int k = 0; k < WINDOW_BITS; ++k) acc = dbl(acc);
+    acc = add(acc, table[digits[w]]);
   }
+  return acc;
 }
 
 // g2.py:scalar_mul for one point: 256 rounds of double, then add where the
 // bit (little-endian order in `bits`) is set
-__device__ __noinline__ void double_and_add(G2& acc, const G2& p, const int32_t* bits) {
-  set_identity(acc);
+__device__ __noinline__ G2 double_and_add(G2 p, const int32_t* bits) {
+  G2 acc = identity<Fp2>();
   for (int i = SCALAR_BITS - 1; i >= 0; --i) {
-    dbl(acc, acc);
-    if (bits[i]) add(acc, acc, p);
+    acc = dbl(acc);
+    if (bits[i]) acc = add(acc, p);
   }
+  return acc;
 }
 
 }  // namespace bls

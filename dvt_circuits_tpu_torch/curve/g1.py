@@ -11,10 +11,13 @@ Two MSM routes, each a wrapper of a hand kernel beside its plain version:
   * ``msm_jacobian`` — kernel C2 (``csrc/curve.cu:g1_msm_windowed``), the
     4-bit fixed-window scalar multiplication of every point and a tree
     reduction; plain version ``msm_plain`` (the JAX ``_msm_jit``);
-  * ``msm_bucket_jacobian`` — kernel C3 (``csrc/curve.cu:g1_msm_bucket``),
-    Pippenger buckets over GLV halves; plain version ``msm_bucket_plain``
-    (the JAX ``_msm_bucket_jit``: sort by digit, Blelloch scan, prefix
-    differences, the binary-weight trick, Horner).
+  * ``msm_bucket_jacobian`` — kernel C3 (``csrc/curve.cu``, four launches:
+    C3a a stable counting sort by digit, C3b chunked bucket sums, C3c
+    grouped window sums, C3d the Horner), Pippenger buckets over GLV
+    halves; plain version ``msm_bucket_plain``, the same stages in plain
+    PyTorch ops, adding in the kernel's order (the JAX ``_msm_bucket_jit``
+    sorts, scans and takes prefix differences instead, and agrees on the
+    affine point).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``msm`` and ``msm_bucket`` are the host-in, host-out entry points.
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -223,9 +227,13 @@ def _library():
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.g1_msm_windowed.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
     lib.g1_msm_windowed.restype = ctypes.c_int
-    lib.g1_msm_bucket.argtypes = [vp, vp, vp, vp, ctypes.c_int, ll, ctypes.c_int, vp, vp, vp,
-                                  vp]
-    lib.g1_msm_bucket.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.g1_bucket_sort.argtypes = [vp, i, i, i, vp, vp, vp, vp]
+    lib.g1_bucket_sums.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp, vp, vp, vp]
+    lib.g1_window_sums.argtypes = [vp, i, i, vp, vp]
+    lib.g1_horner.argtypes = [vp, i, i, vp, vp]
+    for fn in (lib.g1_bucket_sort, lib.g1_bucket_sums, lib.g1_window_sums, lib.g1_horner):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -372,135 +380,257 @@ def bucket_inputs(points_affine, scalars, window_bits: int, device="cuda"):
     return p, digits
 
 
-def msm_bucket_plain(p, digits, window_bits: int) -> tuple:
-    """The JAX ``_msm_bucket_jit`` in plain PyTorch ops.  p: (m,)-batched
-    Jacobian, m a power of two; digits: (m, nwin) int32 MSB-first."""
+#: kernel C3's constants (``csrc/curve.cu``: ``kChunk``, ``kGroups``): the
+#: sorted entries one thread of C3b adds, and the groups of consecutive
+#: buckets C3c cuts a window into
+BUCKET_CHUNK = 8
+WINDOW_GROUPS = 64
+#: C3's stages, in launch order, each with the count of its launches
+stage_counts = {name: SimpleNamespace(launches=0)
+                for name in ("g1_bucket_sort", "g1_bucket_sums", "g1_window_sums", "g1_horner")}
+
+
+def _select_points(cond, a, b):
+    return tuple(fp.select(cond, ca, cb) for ca, cb in zip(a, b))
+
+
+def bucket_sort_plain(digits, window_bits: int):
+    """C3a: for each window a stable sort of the points by digit.  Returns
+    ``idx`` (nwin, m) int32, the point indices in digit order (index order
+    inside a bucket, as ``torch.argsort(stable=True)`` gives), and
+    ``offsets`` (nwin, 2^w + 1) int32, where bucket b starts."""
+    d = digits.T.long()
+    nwin = d.shape[0]
+    counts = torch.zeros((nwin, 1 << window_bits), dtype=torch.int64, device=d.device)
+    counts.scatter_add_(1, d, torch.ones_like(d))
+    offsets = torch.zeros((nwin, (1 << window_bits) + 1), dtype=torch.int64, device=d.device)
+    offsets[:, 1:] = counts.cumsum(1)
+    return (torch.argsort(d, dim=1, stable=True).to(torch.int32), offsets.to(torch.int32))
+
+
+def _bucket_slots(offsets, chunk: int):
+    """C3b's layout of the partial sums, from the offsets (host numpy):
+    bucket b's partials sit in the slots from (offsets[b] - offsets[1]) //
+    chunk + b - 1, one per chunk its entries touch.  Returns (first slot,
+    count of partials), each (nwin, 2^w - 1), the count 0 for an empty
+    bucket."""
+    off = offsets.cpu().numpy().astype(np.int64)
+    o1 = off[:, 1:2]
+    lo, hi = off[:, 1:-1], off[:, 2:]  # bucket b = 1 .. 2^w - 1: [lo, hi)
+    nb = lo.shape[1]
+    first = (lo - o1) // chunk + np.arange(nb)
+    count = np.where(hi > lo, (hi - 1 - o1) // chunk - (lo - o1) // chunk + 1, 0)
+    return first, count
+
+
+def bucket_sums_plain(p, digits, idx, offsets, window_bits: int, chunk: int = BUCKET_CHUNK):
+    """C3b: S_{v,b} for every window v and bucket b = 1 .. 2^w - 1, as
+    (nwin, 2^w - 1, 32) per coordinate (the identity for an empty bucket).
+
+    Each window's sorted nonzero entries are cut into chunks of ``chunk``;
+    a chunk adds its runs of equal digit in order (acc = add(acc, P)), one
+    partial per (chunk, bucket); then each bucket's partials are joined by a
+    tree (j and j + s at level s = 1, 2, 4, ..., j a multiple of 2s): the
+    additions of the kernel, in its order."""
     mul = fp.mont_mul_plain
     m, nwin = digits.shape
-    nbuckets = (1 << window_bits) - 1
+    nb = (1 << window_bits) - 1
     dev = digits.device
-    nl = fp.NLIMBS
+    nchunks = -(-m // chunk)
+    nslots = nchunks + nb
+    idx_l = idx.long()
+    sorted_digits = torch.gather(digits.T.long(), 1, idx_l)  # (nwin, m)
+    o1 = offsets[:, 1:2].long()
+    cidx = torch.arange(nchunks, device=dev)
+    rows = torch.arange(nwin, device=dev)[:, None].expand(nwin, nchunks)
+    partial = tuple(c.clone() for c in identity((nwin, nslots), dev))
 
-    # sort each window's points by digit: (nwin, m) gather indices
-    order = torch.argsort(digits, dim=0, stable=True).T  # (nwin, m)
-    sorted_digits = torch.gather(digits, 0, order.T).T.contiguous()  # (nwin, m)
-    v = tuple(c[order] for c in p)  # (nwin, m, 32)
+    def close(mask, d, acc):
+        slot = (cidx + d - 1).clamp(0, nslots - 1)
+        for c, a in zip(partial, acc):
+            c[rows[mask], slot[mask]] = a[mask]
 
-    # group-law EXCLUSIVE prefix scan along the point axis (Blelloch)
-    step = 2
-    while step <= m:
-        vr = tuple(c.reshape(nwin, m // step, step, nl).clone() for c in v)
-        left = tuple(c[:, :, step // 2 - 1] for c in vr)
-        right = tuple(c[:, :, step - 1] for c in vr)
-        s = add(right, left, mul)
-        for c, sc in zip(vr, s):
-            c[:, :, step - 1] = sc
-        v = tuple(c.reshape(nwin, m, nl) for c in vr)
-        step *= 2
-    total = tuple(c[:, m - 1] for c in v)  # (nwin, 32): Σ of the window
-    v = tuple(c.clone() for c in v)
-    for c, i in zip(v, identity((nwin,), dev)):
-        c[:, m - 1] = i
-    step = m
-    while step >= 2:
-        vr = tuple(c.reshape(nwin, m // step, step, nl).clone() for c in v)
-        left = tuple(c[:, :, step // 2 - 1] for c in vr)
-        right = tuple(c[:, :, step - 1].clone() for c in vr)
-        s = add(left, right, mul)
-        for c, r, sc in zip(vr, right, s):
-            c[:, :, step // 2 - 1] = r
-            c[:, :, step - 1] = sc
-        v = tuple(c.reshape(nwin, m, nl) for c in vr)
-        step //= 2
-    # E[i] = Σ_{j<i} P_j; V(m) = Σ all
-    prefix_ext = tuple(torch.cat([c, t[:, None]], 1) for c, t in zip(v, total))
+    acc, prev = None, None
+    for k in range(min(chunk, m)):  # a chunk holds at most m entries
+        s = o1 + cidx * chunk + k  # (nwin, nchunks) sorted positions
+        active = s < m
+        s = s.clamp(max=m - 1)
+        d = torch.gather(sorted_digits, 1, s)
+        point_idx = torch.gather(idx_l, 1, s)
+        pt = tuple(c[point_idx] for c in p)
+        if k == 0:
+            acc, prev, has = pt, d, active
+            continue
+        new_run = d != prev
+        close(active & new_run, prev, acc)
+        nxt = _select_points(new_run, pt, add(acc, pt, mul))
+        acc = _select_points(active, nxt, acc)
+        prev = torch.where(active, d, prev)
+    close(has, prev, acc)
 
-    # bucket sums via exclusive-prefix differences at digit-run boundaries:
-    # Σ_{digit=b} = V(last(b)+1) − V(last(b−1)+1)
-    buckets = torch.arange(1, nbuckets + 1, dtype=torch.int32, device=dev)
-    bk = buckets.expand(nwin, nbuckets).contiguous()
-    li = torch.searchsorted(sorted_digits, bk, right=True) - 1  # (nwin, nb)
-    li_prev = torch.searchsorted(sorted_digits, bk - 1, right=True) - 1
+    first, count = _bucket_slots(offsets, chunk)
+    kmax = int(count.max(initial=0))
+    s = 1
+    while s < kmax:
+        j = np.arange(0, kmax, 2 * s)
+        take = j[None, None, :] + s < count[:, :, None]  # (nwin, nb, pairs)
+        v = np.broadcast_to(np.arange(nwin)[:, None, None], take.shape)[take]
+        t = (first[:, :, None] + j[None, None, :])[take]
+        v, t = torch.as_tensor(v, device=dev), torch.as_tensor(t, device=dev)
+        summed = add(tuple(c[v, t] for c in partial), tuple(c[v, t + s] for c in partial), mul)
+        for c, a in zip(partial, summed):
+            c[v, t] = a
+        s *= 2
+    nonempty = torch.as_tensor(count > 0, device=dev)
+    slots = torch.as_tensor(np.where(count > 0, first, 0), device=dev)
+    picked = tuple(torch.gather(c, 1, slots[:, :, None].expand(-1, -1, fp.NLIMBS))
+                   for c in partial)
+    return _select_points(nonempty, picked, identity((nwin, nb), dev))
 
-    def pick(idx_plus1):
-        return tuple(torch.gather(c, 1, idx_plus1[:, :, None].expand(-1, -1, nl))
-                     for c in prefix_ext)  # (nwin, nb, 32)
 
-    bucket_sums = add(pick(li + 1), _neg_point(pick(li_prev + 1)), mul)
+def window_sums_plain(buckets, window_bits: int, groups: int = WINDOW_GROUPS):
+    """C3c: W_v = sum_b b * S_{v,b} for every window, (nwin, 32) per
+    coordinate, from ``buckets`` (nwin, 2^w - 1, 32) per coordinate.
 
-    # Σ b·S_b per window via the binary-weight trick, all (bit, window)
-    # pairs through one tree reduction over the bucket axis
-    bit_masks = torch.stack([((buckets >> j) & 1).bool() for j in range(window_bits)])
-    mask_b = bit_masks[:, None, :].expand(window_bits, nwin, nbuckets).reshape(
-        window_bits * nwin, nbuckets)
-    ident = identity((window_bits * nwin, nbuckets), dev)
-    t = tuple(
-        fp.select(mask_b,
-                  c[None].expand(window_bits, *c.shape).reshape(window_bits * nwin, nbuckets, nl),
-                  ident[ci])
-        for ci, c in enumerate(bucket_sums)
-    )
-    nb = nbuckets
-    while nb > 1:
-        half = nb // 2
-        a = tuple(c[:, :half] for c in t)
-        b2 = tuple(c[:, half: 2 * half] for c in t)
-        rest = tuple(c[:, 2 * half:] for c in t)
-        s = add(a, b2, mul)
-        t = tuple(torch.cat([cs, cr], 1) for cs, cr in zip(s, rest))
-        nb = t[0].shape[1]
-    T = tuple(c[:, 0].reshape(window_bits, nwin, nl) for c in t)
+    The buckets are cut into groups of L = ceil((2^w - 1) / groups)
+    consecutive buckets [b_lo, b_hi]; each group runs R = sum S_b and
+    U = sum (b - b_lo + 1) S_b as running sums from b_hi down, then
+    W_g = U + (b_lo - 1) R by w bits of double-and-add from the top; a tree
+    over the groups (g and g + s at level s) gives W_v."""
+    mul = fp.mont_mul_plain
+    nwin, nb = buckets[0].shape[:2]
+    dev = buckets[0].device
+    length = -(-nb // groups)
+    ng = -(-nb // length)
+    b_lo = torch.arange(ng, device=dev) * length + 1
+    b_hi = (b_lo + length - 1).clamp(max=nb)
+    r = tuple(c[:, b_hi - 1] for c in buckets)  # (nwin, ng, 32)
+    u = r
+    for step in range(1, length):
+        b = b_hi - step
+        active = (b >= b_lo).expand(nwin, ng)
+        r2 = add(r, tuple(c[:, (b - 1).clamp(min=0)] for c in buckets), mul)
+        u2 = add(u, r2, mul)
+        r, u = _select_points(active, r2, r), _select_points(active, u2, u)
+    q = identity((nwin, ng), dev)
+    for j in range(window_bits - 1, -1, -1):
+        q = double(q, mul)
+        bit = (((b_lo - 1) >> j) & 1).bool().expand(nwin, ng)
+        q = _select_points(bit, add(q, r, mul), q)
+    w = tuple(c.clone() for c in add(u, q, mul))
+    s = 1
+    while s < ng:
+        g = torch.arange(0, ng - s, 2 * s, device=dev)
+        summed = add(tuple(c[:, g] for c in w), tuple(c[:, g + s] for c in w), mul)
+        for c, a in zip(w, summed):
+            c[:, g] = a
+        s *= 2
+    return tuple(c[:, 0] for c in w)
 
-    # per-window Horner over bits, batched over windows
-    win_sums = tuple(c[window_bits - 1] for c in T)
-    for j in range(window_bits - 2, -1, -1):
-        win_sums = add(double(win_sums, mul), tuple(c[j] for c in T), mul)
 
-    # cross-window Horner, MSB window first
-    acc = tuple(c[0] for c in win_sums)
-    for w in range(1, nwin):
+def horner_plain(windows, window_bits: int):
+    """C3d: the windows ((nwin, 32) per coordinate), most significant first,
+    joined by ``window_bits`` doublings each."""
+    mul = fp.mont_mul_plain
+    acc = tuple(c[0] for c in windows)
+    for v in range(1, windows[0].shape[0]):
         for _ in range(window_bits):
             acc = double(acc, mul)
-        acc = add(acc, tuple(c[w] for c in win_sums), mul)
+        acc = add(acc, tuple(c[v] for c in windows), mul)
     return acc
+
+
+def msm_bucket_plain(p, digits, window_bits: int, *, chunk: int = BUCKET_CHUNK,
+                     groups: int = WINDOW_GROUPS) -> tuple:
+    """Kernel C3's staged algorithm in plain PyTorch ops, every addition in
+    its order, so the two give the same Jacobian limbs: the stable sort by
+    digit (C3a), the chunked bucket sums and their trees (C3b), the grouped
+    window sums (C3c) and the cross-window Horner (C3d).  p: (m,)-batched
+    Jacobian; digits: (m, nwin) int32 MSB-first.  Every Fp product goes
+    through ``fp.mont_mul_plain``."""
+    idx, offsets = bucket_sort_plain(digits, window_bits)
+    buckets = bucket_sums_plain(p, digits, idx, offsets, window_bits, chunk)
+    return horner_plain(window_sums_plain(buckets, window_bits, groups), window_bits)
+
+
+def _bucket_launches(points, digits, window_bits: int):
+    """C3's four launches over fresh scratch, for ``msm_bucket_jacobian`` and
+    for timing and checking each stage: ({stage: launch}, buffers), where
+    calling the launches in order fills ``buffers``: "idx" and "offsets"
+    (C3a), "buckets" (C3b, (nwin, 2^w - 1, 36) int32 words, x, y, z by 12),
+    "windows" (C3c, (nwin, 36)) and "out" (C3d, Σ dᵢ·Pᵢ as (3, 32) int64
+    Jacobian limbs).  Each launch adds one to its stage's count."""
+    m, nwin = digits.shape
+    X, Y, Z = _check_points(points, m, digits.device)
+    digits = digits.contiguous()
+    nb = (1 << window_bits) - 1
+    nslots = -(-m // BUCKET_CHUNK) + nb
+    dev = digits.device
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    idx, offsets, arrive = scratch(nwin, m), scratch(nwin, nb + 2), scratch(nwin, nslots)
+    partial = scratch(nwin, nslots, _POINT_WORDS)
+    buckets, windows = scratch(nwin, nb, _POINT_WORDS), scratch(nwin, _POINT_WORDS)
+    out = torch.empty((3, fp.NLIMBS), dtype=torch.int64, device=dev)
+    lib = _library()
+    stream = kernels.stream_handle(digits)
+    calls = {
+        "g1_bucket_sort": lambda: lib.g1_bucket_sort(
+            digits.data_ptr(), window_bits, m, nwin, idx.data_ptr(), offsets.data_ptr(),
+            arrive.data_ptr(), stream),
+        "g1_bucket_sums": lambda: lib.g1_bucket_sums(
+            X.data_ptr(), Y.data_ptr(), Z.data_ptr(), digits.data_ptr(), idx.data_ptr(),
+            offsets.data_ptr(), window_bits, m, nwin, partial.data_ptr(), arrive.data_ptr(),
+            buckets.data_ptr(), stream),
+        "g1_window_sums": lambda: lib.g1_window_sums(
+            buckets.data_ptr(), window_bits, nwin, windows.data_ptr(), stream),
+        "g1_horner": lambda: lib.g1_horner(
+            windows.data_ptr(), window_bits, nwin, out.data_ptr(), stream),
+    }
+
+    def launch(name, call):
+        def run():
+            kernels.check(call(), f"C3 {name} kernel launch")
+            stage_counts[name].launches += 1
+        return run
+
+    buffers = {"idx": idx, "offsets": offsets, "buckets": buckets, "windows": windows,
+               "out": out}
+    return {name: launch(name, call) for name, call in calls.items()}, buffers
 
 
 def msm_bucket_jacobian(points, digits, window_bits: int) -> tuple:
     """Σ dᵢ·Pᵢ over ``window_bits``-bit windows for ``points`` a batched
     Jacobian triple ((m, 32) int64 each, m a power of two) and ``digits``
-    (m, nwin) int32 MSB-first; one Jacobian point.
+    (m, nwin) int32 MSB-first, each in [0, 2^w); one Jacobian point.
 
     A CPU tensor takes ``msm_bucket_plain``; a CUDA tensor launches kernel
-    C3 (``csrc/curve.cu:g1_msm_bucket``: one thread per (window, bucket),
-    one per window for Σ b·S_b, one for the cross-window Horner) or raises.
-    C3 replaces the XLA ``dvt_circuits_tpu/curve/g1.py:_msm_bucket_jit``.
-    The two agree on the affine point, not on the Jacobian limbs: their
-    additions run in different orders."""
+    C3 (``csrc/curve.cu``: C3a the counting sort, C3b the chunked bucket
+    sums, C3c the grouped window sums, C3d the Horner) or raises.  C3
+    replaces the XLA ``dvt_circuits_tpu/curve/g1.py:_msm_bucket_jit``.  The
+    kernel and ``msm_bucket_plain`` add in the same order, so they give the
+    same Jacobian limbs; the JAX algorithm agrees on the affine point."""
     if not 2 <= window_bits <= 8:
         raise ValueError(f"window_bits {window_bits} outside [2, 8]")
-    if digits.dim() != 2:
+    if digits.dim() != 2 or digits.shape[0] < 1:
         raise ValueError(f"expected (m, nwin) digits, got {tuple(digits.shape)}")
+    lo, hi = (int(v) for v in torch.stack(torch.aminmax(digits)).tolist())
+    if lo < 0 or hi >= 1 << window_bits:  # C3a indexes its buckets by digit
+        raise ValueError(f"digits in [{lo}, {hi}], outside [0, 2^{window_bits})")
     if digits.device.type == "cpu":
         return msm_bucket_plain(points, digits, window_bits)
     if digits.device.type != "cuda" or digits.dtype != torch.int32:
         raise ValueError(f"expected int32 digits on a CUDA device, got {digits.dtype} on "
                          f"{digits.device}")
-    m, nwin = digits.shape
-    X, Y, Z = _check_points(points, m, digits.device)
-    digits = digits.contiguous()
-    nbuckets = (1 << window_bits) - 1
-    dev = digits.device
-    out = torch.empty((3, fp.NLIMBS), dtype=torch.int64, device=dev)
-    bucket_scratch = torch.empty((nwin * nbuckets, _POINT_WORDS), dtype=torch.int32, device=dev)
-    window_scratch = torch.empty((nwin, _POINT_WORDS), dtype=torch.int32, device=dev)
-    kernels.check(
-        _library().g1_msm_bucket(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), digits.data_ptr(),
-                                 window_bits, m, nwin, out.data_ptr(), bucket_scratch.data_ptr(),
-                                 window_scratch.data_ptr(), kernels.stream_handle(digits)),
-        "g1_msm_bucket kernel launch",
-    )
+    if digits.shape[0] >= 1 << 30:
+        raise ValueError(f"kernel C3 takes m < 2^30, got {digits.shape[0]}")
+    launches, buffers = _bucket_launches(points, digits, window_bits)
+    for launch in launches.values():
+        launch()
     msm_bucket_jacobian.launches += 1
-    return tuple(out)
+    return tuple(buffers["out"])
 
 
 msm_bucket_jacobian.launches = 0

@@ -182,15 +182,58 @@ def test_g1_msm_windowed_kernel_matches_plain(card):
     assert g1.msm(points, scalars, device=card) == want
 
 
+def _skewed_batch(batch: str, rng):
+    """Batches that skew C3's buckets: every scalar equal, scalars below 2^16,
+    every point equal, P beside -P; with the host oracle's sum."""
+    pts = [host.g1_mul(host.G1_GEN, 7 * i + 3) for i in range(8)]
+    scalar = int.from_bytes(rng.bytes(32), "big") % host.R
+    if batch == "equal-scalars":
+        points, scalars = pts, [scalar] * 8
+    elif batch == "small-scalars":
+        points, scalars = pts, [int(v) for v in rng.integers(0, 1 << 16, 8)]
+    elif batch == "equal-points":
+        points, scalars = [pts[1]] * 8, [scalar] * 4 + [scalar + i for i in range(4)]
+    else:
+        points = [q for p in pts[:4] for q in (p, host.g1_neg(p))]
+        scalars = [5, 5, 7, 7, 9, 8, scalar, scalar]
+    want = None
+    for p, s in zip(points, scalars):
+        want = host.g1_add(want, host.g1_mul(p, s))
+    return points, scalars, want
+
+
 @pytest.mark.parametrize("window_bits", [2, 4, 8])
-def test_g1_msm_bucket_kernel_matches_host(card, window_bits):
-    points, scalars, want = _edge_batch(np.random.default_rng(window_bits))
-    before = g1.msm_bucket_jacobian.launches
+@pytest.mark.parametrize("batch", ["edge", "equal-scalars", "small-scalars", "equal-points",
+                                   "p-and-minus-p"])
+def test_g1_msm_bucket_kernel_matches_host(card, window_bits, batch):
+    rng = np.random.default_rng(window_bits)
+    points, scalars, want = (_edge_batch(rng) if batch == "edge"
+                             else _skewed_batch(batch, rng))
+    counters = [g1.msm_bucket_jacobian, *g1.stage_counts.values()]
+    before = [c.launches for c in counters]
     assert g1.msm_bucket(points, scalars, window_bits, device=card) == want
-    assert g1.msm_bucket_jacobian.launches == before + 1
+    # one call of the wrapper, one launch of each stage C3a-C3d
+    assert [c.launches for c in counters] == [n + 1 for n in before]
     p, digits = g1.bucket_inputs(points, scalars, window_bits, card)
-    plain = g1.msm_bucket_plain(p, digits, window_bits)
-    assert g1.to_affine_points(tuple(c[None] for c in plain))[0] == want
+    got = g1.msm_bucket_jacobian(p, digits, window_bits)
+    again = g1.msm_bucket_jacobian(p, digits, window_bits)
+    # the kernel adds in the staged plain version's order: the same limbs,
+    # and the same in every run
+    for a, b, c in zip(got, again, g1.msm_bucket_plain(p, digits, window_bits)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("copies", [40, 1000])
+def test_g1_msm_bucket_kernel_joins_many_partials(card, copies):
+    """One bucket a window spans many of C3b's chunks: its partials go
+    through a tree of several levels, joined across blocks."""
+    points, scalars, want = _skewed_batch("equal-scalars", np.random.default_rng(copies))
+    points, scalars = points * copies, scalars * copies
+    p, digits = g1.bucket_inputs(points, scalars, 4, card)
+    got = g1.msm_bucket_jacobian(p, digits, 4)
+    for a, b in zip(got, g1.msm_bucket_plain(p, digits, 4)):
+        assert torch.equal(a, b)
+    assert g1.to_affine_points(tuple(c[None] for c in got))[0] == host.g1_mul(want, copies)
 
 
 def test_g2_scalar_mul_kernel_matches_plain(card):
