@@ -34,19 +34,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ones, in turns; timings;
   5. K3 (the multiply-add probe): kernel vs plain on (16, 2^18) random
      values plus rows of 0, 1 and 2^32−1, bit-equal; timings; its IMAD rate;
-  5b. the curve package (phase ``curve``): C1 (the Fp Montgomery product)
+  5b. the curve package (phase ``curve``): the lane probe
+     (``curve/lane_probe.py``: one product's and one point operation's
+     latency, in one thread and spread over lanes); C1 (the Fp Montgomery product)
      bit-equal to ``mont_mul_plain`` on 2^16 random pairs and the rows 0, 1,
      p − 1, p − 2; C2 (the windowed G1 MSM) and C3 (the GLV bucket MSM)
      equal to the host oracle on an edge batch (zero scalars, an identity,
      a repeated point, P and −P; C3 at w = 2, 4, 8) and at bench.py's 1,024
      and 4,096 points (P_i = (7i + 3)·G, so the oracle is one host scalar
-     multiplication), C2's Jacobian limbs equal to ``msm_plain``'s; C3 also
+     multiplication), C2's Jacobian limbs equal to ``msm_plain``'s (the edge
+     batch too); C3 also
      on 4,096 points of one scalar, its four stages (C3a the sort, C3b the
      bucket sums, C3c the window sums, C3d the Horner) each equal to its
      plain stage (``msm_bucket_plain``'s limbs) and the same in a second
      run, each stage timed; C4 (the
-     G2 scalar multiplication) limb-equal to ``scalar_mul_plain`` and equal
-     to the host ``g2_mul`` on 16 points; each timed against its plain
+     G2 scalar multiplication) limb-equal to ``scalar_mul_plain``, the same
+     in two runs and equal to the host ``g2_mul`` on 16 points (one the
+     identity), then on 1,024 points whose first 16 are those (their limbs
+     equal the 16-point run's, a sample equals the host ``g2_mul``; the
+     plain version is not run again); each timed against its plain
      version and its bound; then the curve path: ``msm`` and ``msm_bucket``
      at 4,096 points (``msm_bucket``'s wall time split into its host input,
      C3's kernels and its host output), ``g2.scalar_mul`` and
@@ -201,10 +207,12 @@ G2_DBL_MULS = 2 * 3 + 5 * 2
 #: bytes of one Fp element in the port's layout (32 int64 limbs)
 FP_BYTES = 32 * 8
 #: the curve phase's sizes: C1's products, the MSM points (bench.py times
-#: its MSMs at 1024 and 4096), C4's G2 points
+#: its MSMs at 1024 and 4096), C4's G2 points (16, and 1024 where the card
+#: is full: a warp a point)
 C1_PAIRS = 1 << 16
 MSM_POINTS = (1024, 4096)
 G2_POINTS = 16
+G2_POINTS_FULL = 1024
 #: integer ALU opcodes counted as work in the compiled kernels
 _INT_OPCODES = {"IMAD", "IADD3", "ISETP", "VIADD", "SHF", "LOP3", "SEL", "IMNMX", "LEA", "PRMT"}
 
@@ -1672,6 +1680,34 @@ def _edge_points():
     return points, scalars, want
 
 
+def _g2_batch(n: int):
+    """C4's input: P_i = (3 + 2i)·G2 (by additions of 2·G2), the identity at
+    i = 15, and random scalars from numpy; a batch's first 16 points and
+    scalars are the 16-point batch's."""
+    from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
+
+    rng = np.random.default_rng(SEED + 11)
+    step = host.g2_add(host.G2_GEN, host.G2_GEN)
+    points = [host.g2_mul(host.G2_GEN, 3)]
+    for _ in range(n - 1):
+        points.append(host.g2_add(points[-1], step))
+    points[15] = None
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    return points, scalars
+
+
+def _g2_products(bits) -> int:
+    """C4's Fp products for these bits: 256 doublings a point, an addition a
+    set bit."""
+    return bits.shape[0] * 256 * G2_DBL_MULS + int(bits.sum()) * G2_ADD_MULS
+
+
+def _c2_device_launches(n: int) -> int:
+    """C2's device launches for n points: the per-point pass, then a launch
+    a level of the tree (a store for n <= 1)."""
+    return (1 if n > 0 else 0) + (max(n - 1, 0).bit_length() if n > 1 else 1)
+
+
 def _windowed_products(digits) -> int:
     """C2's Fp products for this input: per point 14 table additions, 256
     doublings and one addition for each nonzero digit; n − 1 additions to
@@ -1779,6 +1815,11 @@ def phase_curve_kernels():
     from dvt_circuits_tpu_torch.curve import fp, g1, g2
     from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 
+    from dvt_circuits_tpu_torch.curve import lane_probe
+
+    probe = lane_probe.measure()
+    _log("lane probe (csrc/lane_probe.cu; µs an operation in a chain, one block, the forms "
+         "end on the same limbs): " + "; ".join(f"{k} {v:.4f}" for k, v in probe.items()))
     records = []
     # -- C1: 2^16 random pairs below p (top limb under p's), and the edges --
     rng = np.random.default_rng(SEED + 10)
@@ -1810,8 +1851,12 @@ def phase_curve_kernels():
                                  f"edge batch")
     if g1.msm(points, scalars, device="cuda") != want:
         raise AssertionError("C2 g1_msm_windowed differs from the oracle on the edge batch")
+    p = g1.from_affine_points(points, "cuda")
+    digits = g1.scalars_to_digits(scalars, "cuda")
+    if _limb_err(g1.msm_jacobian(p, digits), g1.msm_plain(p, digits)):
+        raise AssertionError("C2 on the edge batch: Jacobian limbs differ from msm_plain")
     _log("C2, C3: the edge batch (zero scalars, identity, a repeated point, P and -P) "
-         "equals the host oracle (C3 at w = 2, 4, 8)")
+         "equals the host oracle (C3 at w = 2, 4, 8), C2's Jacobian limbs equal msm_plain's")
     for n in MSM_POINTS:
         t0 = time.perf_counter()
         points, scalars, want = _bench_points(n)
@@ -1829,7 +1874,8 @@ def phase_curve_kernels():
         bound2 = curve_bound_ms(_windowed_products(digits),
                                 n * (3 * FP_BYTES + 64 * 4) + 3 * FP_BYTES)
         _log(f"C2 g1_msm_windowed at {n} points: equals the oracle, Jacobian limbs equal "
-             f"msm_plain's; {ms2:.6f} ms (2 device launches a call), plain {plain2_ms:.3f} ms, "
+             f"msm_plain's; {ms2:.6f} ms ({_c2_device_launches(n)} device launches a call), "
+             f"plain {plain2_ms:.3f} ms, "
              f"bound {bound2[0]:.6f} ms ({bound2[1]}), share {bound2[0] / ms2:.3e}")
         records.append(_curve_record("g1_msm_windowed", "dvt_circuits_tpu/curve/g1.py:214",
                                      (n,), err2, ms2, plain2_ms, bound2))
@@ -1838,28 +1884,52 @@ def phase_curve_kernels():
     records += _c3_records(f"{MSM_POINTS[-1]} points, equal scalars", points, scalars, want)
 
     # -- C4: G2 points, one of them the identity ------------------------------
-    rng = np.random.default_rng(SEED + 11)
     n = G2_POINTS
-    g2_points = [host.g2_mul(host.G2_GEN, 3 + 2 * i) for i in range(n - 1)] + [None]
-    g2_scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    g2_points, g2_scalars = _g2_batch(n)
     pg = g2.from_host_points(g2_points, "cuda")
     bits = g1.scalars_to_bits(g2_scalars, "cuda")
     got = g2.scalar_mul(pg, bits)
+    again = g2.scalar_mul(pg, bits)
     plain, plain_ms = _cuda_ms(lambda: g2.scalar_mul_plain(pg, bits))
     err = _limb_err(got, plain)
     if err:
         raise AssertionError("C4 g2_scalar_mul: Jacobian limbs differ from scalar_mul_plain")
+    if _limb_err(got, again):
+        raise AssertionError("C4 g2_scalar_mul: two runs gave different Jacobian limbs")
     if g2.to_host_points(got) != [host.g2_mul(q, k) if q else None
                                   for q, k in zip(g2_points, g2_scalars)]:
         raise AssertionError("C4 g2_scalar_mul differs from the host g2_mul")
     ms = _time_ms(lambda: g2.scalar_mul(pg, bits), 5, warmup=1)
-    products = n * 256 * G2_DBL_MULS + int(bits.sum()) * G2_ADD_MULS
-    bound = curve_bound_ms(products, n * (2 * 3 * 2 * FP_BYTES + 256 * 4))
-    _log(f"C4 g2_scalar_mul at {n} points: Jacobian limbs equal scalar_mul_plain's, affine "
-         f"equals the host g2_mul; {ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
-         f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3e}")
+    bound = curve_bound_ms(_g2_products(bits), n * (2 * 3 * 2 * FP_BYTES + 256 * 4))
+    _log(f"C4 g2_scalar_mul at {n} points: Jacobian limbs equal scalar_mul_plain's and the same "
+         f"in two runs, affine equals the host g2_mul; {ms:.6f} ms, plain {plain_ms:.3f} ms, "
+         f"bound {bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3e}")
     records.append(_curve_record("g2_scalar_mul", "dvt_circuits_tpu/curve/g2.py:170", (n,), err,
                                  ms, plain_ms, bound))
+    # at 1024 points, where the card is full: the first 16 rows against the
+    # 16-point run's limbs, a sample against the host oracle (the plain
+    # version is not run again)
+    n = G2_POINTS_FULL
+    t0 = time.perf_counter()
+    big_points, big_scalars = _g2_batch(n)
+    pg = g2.from_host_points(big_points, "cuda")
+    bits = g1.scalars_to_bits(big_scalars, "cuda")
+    big = g2.scalar_mul(pg, bits)
+    head = tuple((c[0][:G2_POINTS], c[1][:G2_POINTS]) for c in big)
+    if _limb_err(head, got):
+        raise AssertionError(f"C4 at {n} points: the first {G2_POINTS} rows differ from the "
+                             f"{G2_POINTS}-point run's")
+    sample = sorted(np.random.default_rng(SEED + 12).choice(n, 16, replace=False).tolist())
+    picked = tuple((c[0][sample], c[1][sample]) for c in big)
+    if g2.to_host_points(picked) != [host.g2_mul(big_points[i], big_scalars[i])
+                                     if big_points[i] else None for i in sample]:
+        raise AssertionError(f"C4 at {n} points differs from the host g2_mul on a sample")
+    ms = _time_ms(lambda: g2.scalar_mul(pg, bits), 3, warmup=1)
+    bound = curve_bound_ms(_g2_products(bits), n * (2 * 3 * 2 * FP_BYTES + 256 * 4))
+    _log(f"C4 g2_scalar_mul at {n} points (input and checks {time.perf_counter() - t0:.1f} s): "
+         f"the first {G2_POINTS} rows equal the {G2_POINTS}-point run's limbs, {len(sample)} "
+         f"sampled rows equal the host g2_mul; {ms:.6f} ms, plain not run, bound "
+         f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3e}")
     return records
 
 

@@ -26,6 +26,9 @@
 // stack frame.  The product and the point operations stay out of line:
 // inlined, a point addition made kernels of tens of thousands of
 // instructions that miss the instruction cache and take minutes in ptxas.
+// C1 and C3 run these one-thread forms; C2 and C4 run the point operations
+// spread over the lanes of a warp (bls12_381_lanes.cuh), on the same
+// product inlined.
 #pragma once
 
 #include <cstdint>
@@ -136,8 +139,9 @@ __device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
 // a * b * 2^-384 mod p, in [0, p): CIOS, one word of b per round, with
 // 64-bit accumulators (IMAD.WIDE).  Each round is a chain of dependent
 // carries: the latency that sets the time of every one-thread point
-// operation.
-__device__ __noinline__ Fp mul(Fp a, Fp b) {
+// operation.  `mul` is the out-of-line call C1 and C3 make; the probe
+// (lane_probe.cu) times this inline form beside it.
+__device__ __forceinline__ Fp mont_mul_inline(const Fp& a, const Fp& b) {
   uint32_t t[NW + 2];
 #pragma unroll
   for (int j = 0; j < NW + 2; ++j) t[j] = 0;
@@ -173,6 +177,8 @@ __device__ __noinline__ Fp mul(Fp a, Fp b) {
   for (int j = 0; j < NW; ++j) s[j] = t[j];
   return reduce_once(s);
 }
+
+__device__ __noinline__ Fp mul(Fp a, Fp b) { return mont_mul_inline(a, b); }
 
 __device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
 
@@ -303,50 +309,6 @@ __device__ __forceinline__ void store(int64_t* limbs, const Fp& a) {
     if (off > 20) v |= a.w[word + 1] << (32 - off);
     limbs[i] = static_cast<int64_t>(v & 0xfffu);
   }
-}
-
-__device__ __forceinline__ Fp2 load2(const int64_t* limbs) {
-  return {load(limbs), load(limbs + NLIMBS)};
-}
-
-__device__ __forceinline__ void store(int64_t* limbs, const Fp2& a) {
-  store(limbs, a.c0);
-  store(limbs + NLIMBS, a.c1);
-}
-
-// -- the algorithms, one thread each -------------------------------------------
-
-constexpr int SCALAR_BITS = 256;
-constexpr int WINDOW_BITS = 4;
-constexpr int NUM_WINDOWS = SCALAR_BITS / WINDOW_BITS;
-
-// g1.py:scalar_mul_windowed for one point: T[j] = j*P by 14 additions, then
-// 64 base-16 digits MSB-first, 4 doublings and one table addition each (a
-// zero digit adds T[0], the identity, as the JAX loop does: where the
-// accumulator is still the identity that returns T[0]'s limbs).  The table
-// is indexed by the digit, so it lives in local memory.
-__device__ __noinline__ G1 windowed_mul(G1 p, const int32_t* digits) {
-  G1 table[16];
-  table[0] = identity<Fp>();
-  table[1] = p;
-  for (int j = 2; j < 16; ++j) table[j] = add(table[j - 1], p);
-  G1 acc = identity<Fp>();
-  for (int w = 0; w < NUM_WINDOWS; ++w) {
-    for (int k = 0; k < WINDOW_BITS; ++k) acc = dbl(acc);
-    acc = add(acc, table[digits[w]]);
-  }
-  return acc;
-}
-
-// g2.py:scalar_mul for one point: 256 rounds of double, then add where the
-// bit (little-endian order in `bits`) is set
-__device__ __noinline__ G2 double_and_add(G2 p, const int32_t* bits) {
-  G2 acc = identity<Fp2>();
-  for (int i = SCALAR_BITS - 1; i >= 0; --i) {
-    acc = dbl(acc);
-    if (bits[i]) acc = add(acc, p);
-  }
-  return acc;
 }
 
 }  // namespace bls

@@ -12,14 +12,19 @@
 // of device memory.
 //
 // C2 g1_msm_windowed replaces dvt_circuits_tpu/curve/g1.py:_msm_jit
-// (scalar_mul_windowed + _tree_reduce).  One thread per point runs the
-// 4-bit fixed-window scalar multiplication (a 16-entry table by 14
-// additions, then 64 windows of 4 doublings and one addition); a second
-// launch of one block reduces the per-point results with the JAX tree's
-// pairing (i, i + half per level), so the result is the JAX algorithm's
-// Jacobian point.  Blocks run in no order, so nothing carries across
-// blocks: the reduction is its own launch.  Bound: operations, 7 products a
-// doubling and 16 an addition at 300 multiplies each.
+// (scalar_mul_windowed + _tree_reduce).  A group of 4 lanes per point (8
+// points a warp, bls12_381_lanes.cuh) runs the 4-bit fixed-window scalar
+// multiplication: a 16-entry table by 14 additions in order, kept in shared
+// memory (16 x 144 bytes a point), then 64 windows of 4 doublings and one
+// addition.  Then the per-point results are reduced with the JAX tree's
+// pairing (i with i + half, the odd last point moved to half), one launch a
+// level, each node an addition on a group of lanes, so the result is the
+// JAX algorithm's Jacobian point.  Device launches a call: 1 + ceil(log2 n)
+// for n >= 2 (the last level writes the limbs), 2 for n = 1 and 1 for n =
+// 0 (a store).  Bound: operations, 7 products a doubling and 16 an
+// addition at 300 multiplies each.  What floors it: a point's chain of 78
+// additions (5 steps with products, 4 of sums alone) and 256 doublings (3
+// and 5), a step with products as long as one product in one lane.
 //
 // C3 g1_msm_bucket replaces dvt_circuits_tpu/curve/g1.py:_msm_bucket_jit
 // (argsort by digit, a Blelloch group-law scan, prefix differences, the
@@ -60,19 +65,26 @@
 // operations spread over several lanes.  The additions run in the order of
 // g1.py:msm_bucket_plain, so C3's Jacobian limbs equal the plain version's.
 //
-// C4 g2_scalar_mul replaces dvt_circuits_tpu/curve/g2.py:scalar_mul.  One
-// thread per point, 256 double-and-add rounds over Fp^2 (Karatsuba, 3 base
-// products a multiply, 2 a square) in the JAX formulas and selects: the
-// result's limbs equal the JAX algorithm's.  Bound: operations.
+// C4 g2_scalar_mul replaces dvt_circuits_tpu/curve/g2.py:scalar_mul.  A
+// warp per point (bls12_381_lanes.cuh): 256 rounds of a doubling and, where
+// the bit is set, an addition over Fp^2 (schoolbook: 4 base products a
+// multiply, 3 a square, all side by side), each spread over the warp's
+// lanes; the branches on
+// the bit and on the addition's special cases are uniform across the warp
+// and pick what the JAX selects pick, so the result's limbs equal the JAX
+// algorithm's.  Bound: operations.  What floors it: 256 doublings (3 steps
+// with products, 7 of sums alone) and an addition a set bit (5 and 9),
+// one after another.
 //
-// C1, C2 and C4 are the simplest designs that are right: one thread per
-// point keeps most of the card idle at a few thousand points, and each
-// point operation is a chain of dependent products in one thread.
+// C1 and C3 run their point operations in one thread (C1 one product a
+// thread, C3's stages one point operation a thread); C2 and C4 spread each
+// point operation over lanes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bls12_381.cuh"
+#include "bls12_381_lanes.cuh"
 
 namespace {
 
@@ -150,30 +162,64 @@ __global__ void __launch_bounds__(256) fp_mont_mul_kernel(const int64_t* __restr
              bls::mul(bls::load(a + i * bls::NLIMBS), bls::load(b + i * bls::NLIMBS)));
 }
 
-__global__ void __launch_bounds__(128) g1_windowed_kernel(
+// -- C2 ----------------------------------------------------------------------
+
+namespace lanes = bls::lanes;
+
+// C2's groups a block: one warp (the per-point pass, whose tables fill the
+// shared memory), or two (the tree)
+constexpr int kG1Groups = 32 / lanes::kG1Lanes;
+constexpr int kTreeGroups = 64 / lanes::kG1Lanes;
+constexpr int kG1GroupWords = lanes::kG1Slots * bls::NW;
+constexpr int kWindowedStride = lanes::group_stride(kG1GroupWords + 16 * PW);
+constexpr int kTreeStride = lanes::group_stride(kG1GroupWords);
+
+// C2's first launch: group g of the block takes point i, its scalar
+// multiplication by its digits into partial[i]; a group past n runs on the
+// identity and all-zero digits, so every warp stays whole at __syncwarp
+__global__ void __launch_bounds__(32) g1_windowed_kernel(
     const int64_t* __restrict__ x, const int64_t* __restrict__ y, const int64_t* __restrict__ z,
     const int32_t* __restrict__ digits, uint32_t* __restrict__ partial, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  put(partial + i * PW, bls::windowed_mul(load_point(x, y, z, i), digits + i * bls::NUM_WINDOWS));
+  __shared__ __align__(16) uint32_t smem[kG1Groups * kWindowedStride];
+  const int g = threadIdx.x / lanes::kG1Lanes, lane = threadIdx.x % lanes::kG1Lanes;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kG1Groups + g;
+  const bool live = i < n;
+  uint32_t* slots = smem + g * kWindowedStride;
+  if (lane < 3) {  // q = P, a coordinate a lane
+    const int64_t* c = lane == 0 ? x : lane == 1 ? y : z;
+    lanes::put(slots + (3 + lane) * bls::NW,
+               live ? bls::load(c + i * bls::NLIMBS) : lane == 1 ? bls::fp_one() : bls::fp_zero());
+  }
+  __syncwarp();
+  lanes::g1_windowed(slots, slots + kG1GroupWords,
+                     live ? digits + i * lanes::NUM_WINDOWS : nullptr, lane);
+  if (live)
+    for (int k = lane; k < PW; k += lanes::kG1Lanes) partial[i * PW + k] = slots[k];
 }
 
-// one block: levels of pts[i] += pts[i + half], the odd last point moved to
-// pts[half], as g1.py:_tree_reduce pairs them
-__global__ void __launch_bounds__(128) g1_tree_reduce_kernel(uint32_t* __restrict__ pts,
-                                                             int64_t n, int64_t* __restrict__ out) {
-  for (int64_t len = n; len > 1;) {
-    const int64_t half = len / 2;
-    for (int64_t i = threadIdx.x; i < half; i += blockDim.x)
-      put(pts + i * PW, bls::add(get(pts + i * PW), get(pts + (i + half) * PW)));
-    __syncthreads();
-    if (len & 1) {
-      for (int k = threadIdx.x; k < PW; k += blockDim.x) pts[half * PW + k] = pts[2 * half * PW + k];
-      __syncthreads();
-    }
-    len = half + (len & 1);
+// One level of g1.py:_tree_reduce over len points: node j = in[j] +
+// in[j + half], or the odd last point at j = half, into out[j]; at len = 2
+// the one node is the result, written as int64 limbs to `limbs`
+__global__ void __launch_bounds__(64) g1_tree_level_kernel(const uint32_t* __restrict__ in,
+                                                           uint32_t* __restrict__ out, int64_t len,
+                                                           int64_t* __restrict__ limbs) {
+  __shared__ __align__(16) uint32_t smem[kTreeGroups * kTreeStride];
+  const int g = threadIdx.x / lanes::kG1Lanes, lane = threadIdx.x % lanes::kG1Lanes;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kTreeGroups + g;
+  uint32_t* slots = smem + g * kTreeStride;
+  lanes::g1_tree_node(slots, in, len, j, lane);
+  if (j >= (len + 1) / 2) return;
+  if (limbs != nullptr) {
+    if (lane < 3) bls::store(limbs + lane * bls::NLIMBS, lanes::get(slots + lane * bls::NW));
+  } else {
+    for (int k = lane; k < PW; k += lanes::kG1Lanes) out[j * PW + k] = slots[k];
   }
-  if (threadIdx.x == 0) store_point(out, n > 0 ? get(pts) : bls::identity<Fp>());
+}
+
+// C2 for n <= 1: the one point, or the identity
+__global__ void g1_store_kernel(const uint32_t* __restrict__ pts, int64_t n,
+                                int64_t* __restrict__ out) {
+  store_point(out, n > 0 ? get(pts) : bls::identity<Fp>());
 }
 
 // -- C3 ----------------------------------------------------------------------
@@ -380,17 +426,22 @@ __global__ void g1_horner_kernel(const uint32_t* __restrict__ windows, int nwin,
   store_point(out, acc);
 }
 
-__global__ void __launch_bounds__(64) g2_scalar_mul_kernel(
+// C4, block i = point i, one warp: lane e < 6 loads and stores element e
+// (coordinate e / 2, component e % 2)
+__global__ void __launch_bounds__(32) g2_scalar_mul_kernel(
     const int64_t* __restrict__ x, const int64_t* __restrict__ y, const int64_t* __restrict__ z,
     const int32_t* __restrict__ bits, int64_t* __restrict__ out, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  constexpr int E = 2 * bls::NLIMBS;  // int64 limbs of an Fp^2 element
-  const G2 p = {bls::load2(x + i * E), bls::load2(y + i * E), bls::load2(z + i * E)};
-  const G2 acc = bls::double_and_add(p, bits + i * bls::SCALAR_BITS);
-  bls::store(out + i * E, acc.x);
-  bls::store(out + (n + i) * E, acc.y);
-  bls::store(out + (2 * n + i) * E, acc.z);
+  __shared__ __align__(16) uint32_t slots[lanes::kG2Slots * bls::NW];
+  const int64_t i = blockIdx.x;
+  const int lane = threadIdx.x, c = lane / 2, part = lane % 2;
+  const int64_t at = (i * 2 + part) * bls::NLIMBS;  // (n, 2, 32) limbs a coordinate
+  if (lane < 6) {
+    const int64_t* src = c == 0 ? x : c == 1 ? y : z;
+    lanes::put(slots + (6 + lane) * bls::NW, bls::load(src + at));
+  }
+  __syncwarp();
+  lanes::g2_double_and_add(slots, bits + i * lanes::SCALAR_BITS, lane);
+  if (lane < 6) bls::store(out + c * n * 2 * bls::NLIMBS + at, lanes::get(slots + lane * bls::NW));
 }
 
 unsigned blocks_for(int64_t n, int threads) {
@@ -409,19 +460,33 @@ extern "C" int fp_mont_mul(const void* a, const void* b, void* out, long long n,
 
 // out (3 x 32 int64 limbs, Jacobian) = sum_i digits_i * P_i for n points
 // (x, y, z: n x 32 int64 limbs each; digits: n x 64 int32, MSB first);
-// partial: n x 36 words of scratch.  Two launches.
+// partial: (n + ceil(n / 2)) x 36 words of scratch, two buffers the tree's
+// levels go back and forth between.  1 + ceil(log2 n) launches (n >= 2).
 extern "C" int g1_msm_windowed(const void* x, const void* y, const void* z, const void* digits,
                                void* out, void* partial, long long n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto pts = static_cast<uint32_t*>(partial);
+  auto limbs = static_cast<int64_t*>(out);
+  uint32_t* a = static_cast<uint32_t*>(partial);
+  uint32_t* b = a + n * PW;
   if (n > 0) {
-    g1_windowed_kernel<<<blocks_for(n, 128), 128, 0, s>>>(
+    g1_windowed_kernel<<<blocks_for(n, kG1Groups), 32, 0, s>>>(
         static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
-        static_cast<const int64_t*>(z), static_cast<const int32_t*>(digits), pts, n);
+        static_cast<const int64_t*>(z), static_cast<const int32_t*>(digits), a, n);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
-  g1_tree_reduce_kernel<<<1, 128, 0, s>>>(pts, n, static_cast<int64_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 1) {
+    g1_store_kernel<<<1, 1, 0, s>>>(a, n, limbs);
+    return static_cast<int>(cudaGetLastError());
+  }
+  for (long long len = n; len > 1; len = (len + 1) / 2) {
+    g1_tree_level_kernel<<<blocks_for((len + 1) / 2, kTreeGroups), 64, 0, s>>>(
+        a, b, len, len == 2 ? limbs : nullptr);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+    uint32_t* t = a;
+    a = b;
+    b = t;
+  }
+  return 0;
 }
 
 // C3's four launches, one entry point each, for m points (x, y, z: m x 32
@@ -482,7 +547,7 @@ extern "C" int g1_horner(const void* windows, int window_bits, int nwin, void* o
 // little-endian)
 extern "C" int g2_scalar_mul(const void* x, const void* y, const void* z, const void* bits,
                              void* out, long long n, void* stream) {
-  g2_scalar_mul_kernel<<<blocks_for(n, 64), 64, 0, static_cast<cudaStream_t>(stream)>>>(
+  g2_scalar_mul_kernel<<<static_cast<unsigned>(n), 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
       static_cast<const int64_t*>(z), static_cast<const int32_t*>(bits),
       static_cast<int64_t*>(out), n);

@@ -10,7 +10,9 @@ Two MSM routes, each a wrapper of a hand kernel beside its plain version:
 
   * ``msm_jacobian`` — kernel C2 (``csrc/curve.cu:g1_msm_windowed``), the
     4-bit fixed-window scalar multiplication of every point and a tree
-    reduction; plain version ``msm_plain`` (the JAX ``_msm_jit``);
+    reduction, each point operation spread over 4 lanes
+    (``csrc/bls12_381_lanes.cuh``); plain version ``msm_plain`` (the JAX
+    ``_msm_jit``);
   * ``msm_bucket_jacobian`` — kernel C3 (``csrc/curve.cu``, four launches:
     C3a a stable counting sort by digit, C3b chunked bucket sums, C3c
     grouped window sums, C3d the Horner), Pippenger buckets over GLV
@@ -247,9 +249,10 @@ def msm_jacobian(points, digits) -> tuple:
     point ((32,) per coordinate).
 
     A CPU tensor takes ``msm_plain``; a CUDA tensor launches kernel C2
-    (``csrc/curve.cu:g1_msm_windowed``: one thread per point, then a
-    one-block tree reduction) or raises.  C2 replaces the XLA
-    ``dvt_circuits_tpu/curve/g1.py:_msm_jit``."""
+    (``csrc/curve.cu:g1_msm_windowed``: 4 lanes a point, then the tree
+    reduction one launch a level) or raises.  C2 replaces the XLA
+    ``dvt_circuits_tpu/curve/g1.py:_msm_jit``.  ``launches`` counts one a
+    call; the call makes 1 + ceil(log2 n) device launches for n ≥ 2."""
     if digits.dim() != 2 or digits.shape[1] != NUM_WINDOWS:
         raise ValueError(f"expected (n, {NUM_WINDOWS}) digits, got {tuple(digits.shape)}")
     if digits.device.type == "cpu":
@@ -261,7 +264,9 @@ def msm_jacobian(points, digits) -> tuple:
     X, Y, Z = _check_points(points, n, digits.device)
     digits = digits.contiguous()
     out = torch.empty((3, fp.NLIMBS), dtype=torch.int64, device=digits.device)
-    scratch = torch.empty((max(n, 1), _POINT_WORDS), dtype=torch.int32, device=digits.device)
+    # the per-point results, then the tree's other buffer (ceil(n / 2) points)
+    scratch = torch.empty((max(n + (n + 1) // 2, 1), _POINT_WORDS), dtype=torch.int32,
+                          device=digits.device)
     kernels.check(
         _library().g1_msm_windowed(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), digits.data_ptr(),
                                    out.data_ptr(), scratch.data_ptr(), n,

@@ -7,10 +7,12 @@ u² = −1), with the JAX package's branchless formulas and flag selects, so
 as ``mul`` (``fp.mont_mul``, kernel C1 on a CUDA tensor, by default).
 
 ``scalar_mul`` is the wrapper of kernel C4 (``csrc/curve.cu:g2_scalar_mul``,
-one thread per point, 256 double-and-add rounds over Fp²): a CUDA tensor
+a warp per point, 256 double-and-add rounds over Fp², each point operation
+spread over the warp's lanes, ``csrc/bls12_381_lanes.cuh``): a CUDA tensor
 launches it, a CPU tensor takes ``scalar_mul_plain`` (the JAX
 ``scalar_mul``, every product through ``fp.mont_mul_plain``).  The kernel
-runs the same formulas and selects, so the two agree limb for limb.
+runs the same formulas and picks what the JAX selects pick, so the two
+agree limb for limb.
 """
 
 from __future__ import annotations
@@ -201,7 +203,7 @@ def scalar_mul(p, bits):
     little-endian); a batched Jacobian triple.
 
     A CPU tensor takes ``scalar_mul_plain``; a CUDA tensor launches kernel
-    C4 (``csrc/curve.cu:g2_scalar_mul``, one thread per point) or raises.
+    C4 (``csrc/curve.cu:g2_scalar_mul``, a warp per point) or raises.
     C4 replaces the XLA ``dvt_circuits_tpu/curve/g2.py:scalar_mul``."""
     if bits.dim() != 2 or bits.shape[1] != SCALAR_BITS:
         raise ValueError(f"expected (n, {SCALAR_BITS}) bits, got {tuple(bits.shape)}")

@@ -23,7 +23,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNEL_SOURCES = ("poseidon2", "keccak", "mulchain", "curve")
+KERNEL_SOURCES = ("poseidon2", "keccak", "mulchain", "curve", "lane_probe")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -249,3 +249,65 @@ def test_g2_scalar_mul_kernel_matches_plain(card):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert g2.to_host_points(got) == [host.g2_mul(q, s) if q else None
                                       for q, s in zip(points, scalars)]
+
+
+def _cpu(t):
+    return tuple(_cpu(c) for c in t) if isinstance(t, tuple) else t.cpu()
+
+
+def _limbs_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_limbs_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+# C2 runs 4 lanes a point, 8 points a warp and a block, then a launch a level
+# of the tree: n = 1 (no level), odd n (a point moved up a level), n that
+# is not a multiple of the 8 points a block (groups past n run on the
+# identity), all-zero digits, an identity, and digits that differ between
+# the points of a warp
+@pytest.mark.parametrize("case", ["n=1", "n=5", "n=13", "zero-digits", "identity", "mixed-warp"])
+def test_g1_msm_windowed_kernel_edge_shapes(card, case):
+    rng = np.random.default_rng(len(case))
+    n = {"n=1": 1, "n=5": 5, "n=13": 13}.get(case, 8)
+    points = [host.g1_mul(host.G1_GEN, int(k)) for k in rng.integers(2, 1 << 40, n)]
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(n)]
+    if case == "zero-digits":
+        scalars = [0] * n
+    if case == "identity":
+        points[3] = None
+    if case == "mixed-warp":  # four points of one warp: 0, 1, R - 1 and a random scalar
+        scalars[:4] = [0, 1, host.R - 1, scalars[3]]
+    p = g1.from_affine_points(points, card)
+    digits = g1.scalars_to_digits(scalars, card)
+    before = g1.msm_jacobian.launches
+    got = g1.msm_jacobian(p, digits)
+    again = g1.msm_jacobian(p, digits)
+    assert g1.msm_jacobian.launches == before + 2
+    assert _limbs_equal(got, again)
+    assert _limbs_equal(got, g1.msm_plain(_cpu(p), digits.cpu()))
+    want = None
+    for q, s in zip(points, scalars):
+        want = host.g1_add(want, host.g1_mul(q, s) if q else None)
+    assert g1.to_affine_points(tuple(c[None] for c in got))[0] == want
+
+
+# C4 runs a warp a point: n = 1, then the identity, all-zero bits, the
+# scalars R - 1 and 1 and random scalars side by side
+@pytest.mark.parametrize("n", [1, 6])
+def test_g2_scalar_mul_kernel_edge_shapes(card, n):
+    rng = np.random.default_rng(n)
+    points = [host.g2_mul(host.G2_GEN, k) for k in (3, 5, 7, 9, 11)][:n] + [None] * (n - 5)
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R, 0, host.R - 1, 1, 77, 12345][:n]
+    p = g2.from_host_points(points, card)
+    bits = g1.scalars_to_bits(scalars, card)
+    before = g2.scalar_mul.launches
+    got = g2.scalar_mul(p, bits)
+    again = g2.scalar_mul(p, bits)
+    assert g2.scalar_mul.launches == before + 2
+    assert _limbs_equal(got, again)
+    # the plain version on the CPU (the same ops; on the card it launches
+    # tens of thousands of small kernels)
+    assert _limbs_equal(got, g2.scalar_mul_plain(_cpu(p), bits.cpu()))
+    assert g2.to_host_points(got) == [host.g2_mul(q, k) if q else None
+                                      for q, k in zip(points, scalars)]
