@@ -36,9 +36,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      values plus rows of 0, 1 and 2^32−1, bit-equal; timings; its IMAD rate;
   5b. the curve package (phase ``curve``): the lane probe
      (``curve/lane_probe.py``: one product's and one point operation's
-     latency, in one thread and spread over lanes); C1 (the Fp Montgomery product)
-     bit-equal to ``mont_mul_plain`` on 2^16 random pairs and the rows 0, 1,
-     p − 1, p − 2; C2 (the windowed G1 MSM) and C3 (the GLV bucket MSM)
+     latency, in one thread and spread over lanes); C1 (the Fp Montgomery
+     product, tiles of ``kTile`` products, ``csrc/fp_tile.cuh``) bit-equal to
+     ``mont_mul_plain`` on 1,024 (the curve path's batch), 2^16 and 2^20
+     random pairs and the rows 0, 1, p − 1, p − 2, at the tails ``kTile`` ±
+     1 and 2^16 + 3 and on views 8 bytes off a 16-byte boundary (the wrapper
+     copies them), its call and its kernel alone (raw launches) timed at
+     each size, its cuobjdump LOCAL and STACK 0; C2 (the windowed G1 MSM) and C3 (the GLV bucket MSM)
      equal to the host oracle on an edge batch (zero scalars, an identity,
      a repeated point, P and −P; C3 at w = 2, 4, 8) and at bench.py's 1,024
      and 4,096 points (P_i = (7i + 3)·G, so the oracle is one host scalar
@@ -206,10 +210,13 @@ G2_ADD_MULS = 11 * 3 + 5 * 2
 G2_DBL_MULS = 2 * 3 + 5 * 2
 #: bytes of one Fp element in the port's layout (32 int64 limbs)
 FP_BYTES = 32 * 8
-#: the curve phase's sizes: C1's products, the MSM points (bench.py times
-#: its MSMs at 1024 and 4096), C4's G2 points (16, and 1024 where the card
-#: is full: a warp a point)
-C1_PAIRS = 1 << 16
+#: the curve phase's sizes: C1's products (1024, the batch of the curve
+#: path's g1.add / g1.double; no caller makes batches of 2^16 or more, so
+#: 2^16 and 2^20, where device memory and not the launch sets the time, are
+#: throughput yardsticks), the MSM points (bench.py times its MSMs at 1024
+#: and 4096), C4's G2 points (16, and 1024 where the card is full: a warp a
+#: point)
+C1_PRODUCTS = (1 << 10, 1 << 16, 1 << 20)
 MSM_POINTS = (1024, 4096)
 G2_POINTS = 16
 G2_POINTS_FULL = 1024
@@ -356,9 +363,10 @@ def with_floor(rec: dict, floor_ms: float) -> dict:
     line gives the kernel's share of each."""
     rec["launch_floor_ms"] = floor_ms
     rec["floor_bound_ms"] = max(rec["bound_ms"], floor_ms)
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    rec["floor_share"] = rec["floor_bound_ms"] / rec["ms"]
     _log(f"{rec['name']} {rec['shape']}: {rec['ms']:.6f} ms; share of the throughput bound "
-         f"{rec['bound_ms'] / rec['ms']:.3e}, of the bound with the launch floor "
-         f"{rec['floor_bound_ms'] / rec['ms']:.4f}")
+         f"{rec['share']:.3e}, of the bound with the launch floor {rec['floor_share']:.4f}")
     return rec
 
 
@@ -1809,10 +1817,137 @@ def _c3_records(label: str, points, scalars, want) -> list:
     return records
 
 
+def c1_operands(n: int):
+    """C1's input of n products on the card: n random pairs below p (the top
+    limb under p's), then 8 rows more, the rows 0, 1, p − 1, p − 2 against
+    themselves and against their reverse."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    rng = np.random.default_rng([SEED + 10, n])
+    top = int(fp.P_INT >> (12 * 31))
+    limbs = rng.integers(0, 1 << 12, (2, n, 32), dtype=np.int64)
+    limbs[..., 31] = rng.integers(0, top, (2, n))
+    edges = np.stack([fp.int_to_limbs(v) for v in (0, 1, fp.P_INT - 1, fp.P_INT - 2)])
+    a = torch.as_tensor(np.concatenate([limbs[0], edges, edges]), device="cuda")
+    b = torch.as_tensor(np.concatenate([limbs[1], edges, edges[::-1].copy()]), device="cuda")
+    return a, b
+
+
+def c1_plain(a, b):
+    """``mont_mul_plain`` over row blocks of 2^16 (its column sums hold 64
+    products a row: 1 GiB of int64 at 2^16 rows, 16 GiB at 2^20)."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    step = 1 << 16
+    return torch.cat([fp.mont_mul_plain(a[i:i + step], b[i:i + step])
+                      for i in range(0, a.shape[0], step)])
+
+
+def c1_kernel_ms(a, b, reps: int) -> float:
+    """C1's kernel alone: ``reps`` launches of its C entry point through
+    ctypes, no wrapper (operands ready, ``out`` allocated once), between
+    CUDA events."""
+    from dvt_circuits_tpu_torch import kernels
+    from dvt_circuits_tpu_torch.curve import fp
+
+    launch, out = fp._library().fp_mont_mul, torch.empty_like(a)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], kernels.stream_handle(a))
+    kernels.check(launch(*args), "fp_mont_mul kernel launch")
+    return _time_ms(lambda: launch(*args), reps)
+
+
+def _c1_times(a, b) -> tuple:
+    """(call ms, kernel-alone ms, reps) of C1 on the n rows of a and b."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    reps = max(20, (100 << 16) // a.shape[0])
+    return _time_ms(lambda: fp.mont_mul(a, b), reps), c1_kernel_ms(a, b, reps), reps
+
+
+def c1_timed(n: int) -> dict:
+    """C1 at n products checked on a sample (the first 256 rows and the 8
+    edge rows bit-equal to ``mont_mul_plain``), then its call and its kernel
+    alone timed (ms): how ``curve/compare_checkouts.py`` and
+    ``curve/sweep.py`` hold one checkout's C1."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    a, b = c1_operands(n)
+    got = fp.mont_mul(a, b)
+    for rows in (slice(0, 256), slice(n, n + 8)):
+        if _limb_err(got[rows], fp.mont_mul_plain(a[rows], b[rows])):
+            raise AssertionError(f"C1 at {n} products differs from mont_mul_plain")
+    ms, kernel_ms, _ = _c1_times(a[:n], b[:n])
+    return {f"C1 {n} products": ms, f"C1 {n} products, kernel alone": kernel_ms}
+
+
+def c1_record(n: int) -> dict:
+    """C1 at n products: bit-equal to ``mont_mul_plain`` (the edge rows too),
+    then the call (``mont_mul``) and the kernel alone timed, against the
+    plain version and the bytes bound (768 bytes a product)."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    a, b = c1_operands(n)
+    err = _limb_err(fp.mont_mul(a, b), c1_plain(a, b))
+    if err:
+        raise AssertionError(f"C1 fp_mont_mul differs from mont_mul_plain at {n} products")
+    a, b = a[:n], b[:n]
+    ms, kernel_ms, reps = _c1_times(a, b)
+    plain_ms = _time_ms(lambda: c1_plain(a, b), 3 if n <= 1 << 16 else 1, warmup=1)
+    # a yardstick of the rate the card reaches on these bytes: PyTorch's own
+    # elementwise add reads two such operands and writes one (not a product)
+    out = torch.empty_like(a)
+    add_ms = _time_ms(lambda: torch.add(a, b, out=out), reps)
+    bound = curve_bound_ms(n, 3 * n * FP_BYTES)
+    _log(f"C1 fp_mont_mul: bit-equal to mont_mul_plain on {n} pairs and the rows 0, 1, p-1, "
+         f"p-2; {n} products: call {ms:.6f} ms, kernel alone {kernel_ms:.6f} ms, plain "
+         f"{plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}), share of the call "
+         f"{bound[0] / ms:.4f}, of the kernel {bound[0] / kernel_ms:.4f}; torch.add on the "
+         f"same bytes {add_ms:.6f} ms")
+    rec = _curve_record("fp_mont_mul", "dvt_circuits_tpu/curve/fp.py:151", (n, 32), err, ms,
+                        plain_ms, bound)
+    rec["kernel_ms"] = kernel_ms
+    rec["same_bytes_add_ms"] = add_ms
+    return rec
+
+
+def c1_edge_checks() -> None:
+    """C1 bit-equal to ``mont_mul_plain`` at the tails of a tile (``kTile`` ±
+    1 and 2^16 + 3 products), on views whose rows start 8 bytes off a
+    16-byte boundary (one operand, then both) and on a broadcast row: one
+    launch a call."""
+    from dvt_circuits_tpu_torch.curve import fp
+
+    tile = fp._library().fp_mont_mul_tile()
+    for n in (tile - 1, tile + 1, (1 << 16) + 3):
+        a, b = c1_operands(n)
+        if _limb_err(fp.mont_mul(a, b), c1_plain(a, b)):
+            raise AssertionError(f"C1 differs from mont_mul_plain at {n + 8} products")
+    a, b = c1_operands(3 * tile + 5)
+    views = []
+    for x in (a, b):
+        view = torch.empty(x.numel() + 1, dtype=torch.int64, device="cuda")[1:].view(x.shape)
+        view.copy_(x)
+        if view.data_ptr() % 16 != 8:
+            raise AssertionError("a view meant to start 8 bytes off is 16-byte aligned")
+        views.append(view)
+    want = c1_plain(a, b)
+    for x, y, what in ((views[0], b, "a misaligned a"), (views[0], views[1], "misaligned a, b"),
+                       (a, b[:1], "a broadcast row of b")):
+        before = fp.mont_mul.launches
+        got = fp.mont_mul(x, y)
+        if fp.mont_mul.launches != before + 1:
+            raise AssertionError(f"C1 on {what}: not one launch")
+        if _limb_err(got, want if y.shape == b.shape else c1_plain(a, b[:1].expand_as(a))):
+            raise AssertionError(f"C1 differs from mont_mul_plain on {what}")
+    _log(f"C1 fp_mont_mul: bit-equal to mont_mul_plain at {tile - 1}, {tile + 1} and "
+         f"{(1 << 16) + 3} products (kTile {tile}, 8 edge rows each), on views 8 bytes off a "
+         f"16-byte boundary and on a broadcast row, one launch a call")
+
+
 def phase_curve_kernels():
     """C1–C4 against their plain versions and the host oracle, timed; returns
     the kernel records (launches filled later)."""
-    from dvt_circuits_tpu_torch.curve import fp, g1, g2
+    from dvt_circuits_tpu_torch.curve import g1, g2
     from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 
     from dvt_circuits_tpu_torch.curve import lane_probe
@@ -1820,28 +1955,8 @@ def phase_curve_kernels():
     probe = lane_probe.measure()
     _log("lane probe (csrc/lane_probe.cu; µs an operation in a chain, one block, the forms "
          "end on the same limbs): " + "; ".join(f"{k} {v:.4f}" for k, v in probe.items()))
-    records = []
-    # -- C1: 2^16 random pairs below p (top limb under p's), and the edges --
-    rng = np.random.default_rng(SEED + 10)
-    n = C1_PAIRS
-    top = int(fp.P_INT >> (12 * 31))
-    limbs = rng.integers(0, 1 << 12, (2, n, 32), dtype=np.int64)
-    limbs[..., 31] = rng.integers(0, top, (2, n))
-    edges = np.stack([fp.int_to_limbs(v) for v in (0, 1, fp.P_INT - 1, fp.P_INT - 2)])
-    a = torch.as_tensor(np.concatenate([limbs[0], edges, edges]), device="cuda")
-    b = torch.as_tensor(np.concatenate([limbs[1], edges, edges[::-1].copy()]), device="cuda")
-    err = _limb_err(fp.mont_mul(a, b), fp.mont_mul_plain(a, b))
-    if err:
-        raise AssertionError("C1 fp_mont_mul differs from mont_mul_plain")
-    a, b = a[:n].contiguous(), b[:n].contiguous()
-    ms = _time_ms(lambda: fp.mont_mul(a, b), 100)
-    plain_ms = _time_ms(lambda: fp.mont_mul_plain(a, b), 3, warmup=1)
-    bound = curve_bound_ms(n, 3 * n * FP_BYTES)
-    _log(f"C1 fp_mont_mul: bit-equal to mont_mul_plain on {n} pairs and the rows 0, 1, p-1, "
-         f"p-2; {n} products {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
-         f"({bound[1]}), share {bound[0] / ms:.4f}")
-    records.append(_curve_record("fp_mont_mul", "dvt_circuits_tpu/curve/fp.py:151", (n, 32), err,
-                                 ms, plain_ms, bound))
+    records = [c1_record(n) for n in C1_PRODUCTS]
+    c1_edge_checks()
 
     # -- C2, C3: the edge batch, then bench's sizes ---------------------------
     points, scalars, want = _edge_points()
@@ -2112,9 +2227,13 @@ def main(argv=None) -> int:
             ln.strip() for ln in kernels.build_log(name).splitlines()
             if any(key in ln for key in ("registers", "spill", "Compiling entry", "stack",
                                          "Function properties"))))
-    for kernel, use in sorted(resource_usage(libs["curve"]).items()):
+    usage = resource_usage(libs["curve"])
+    for kernel, use in sorted(usage.items()):
         _log(f"C1-C4 resource usage (cuobjdump) {kernel}: REG {use['REG']} STACK {use['STACK']} "
              f"LOCAL {use['LOCAL']} SHARED {use['SHARED']}")
+    c1 = usage["fp_mont_mul_kernel"]
+    if c1["STACK"] or c1["LOCAL"]:
+        raise AssertionError(f"C1's kernel uses local memory: {c1}")
     work = kernel_work(libs)
     floor_ms = launch_floor_ms()
     _log(f"launch floor (fastest in-place op on a one-element CUDA tensor): {floor_ms:.6f} ms")

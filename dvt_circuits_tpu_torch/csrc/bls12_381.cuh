@@ -20,15 +20,15 @@
 // order writes its Jacobian limbs.
 //
 // Every operation takes and returns its elements by value, so the
-// product's operands, accumulator and result stay in registers (C1's
-// kernel has no stack frame); passed by reference, an out-of-line call
+// product's operands, accumulator and result stay in registers; passed
+// by reference, an out-of-line call
 // needs its operands' addresses, so its caller keeps every operand in its
 // stack frame.  The product and the point operations stay out of line:
 // inlined, a point addition made kernels of tens of thousands of
 // instructions that miss the instruction cache and take minutes in ptxas.
-// C1 and C3 run these one-thread forms; C2 and C4 run the point operations
-// spread over the lanes of a warp (bls12_381_lanes.cuh), on the same
-// product inlined.
+// C3 runs these one-thread forms; C1 runs the product inlined, one a
+// thread (fp_tile.cuh); C2 and C4 run the point operations spread over the
+// lanes of a warp (bls12_381_lanes.cuh), on the same product inlined.
 #pragma once
 
 #include <cstdint>
@@ -139,8 +139,8 @@ __device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
 // a * b * 2^-384 mod p, in [0, p): CIOS, one word of b per round, with
 // 64-bit accumulators (IMAD.WIDE).  Each round is a chain of dependent
 // carries: the latency that sets the time of every one-thread point
-// operation.  `mul` is the out-of-line call C1 and C3 make; the probe
-// (lane_probe.cu) times this inline form beside it.
+// operation.  `mul` is the out-of-line call C3 makes; the probe
+// (lane_probe.cu) times this inline form, which C1, C2 and C4 run, beside it.
 __device__ __forceinline__ Fp mont_mul_inline(const Fp& a, const Fp& b) {
   uint32_t t[NW + 2];
 #pragma unroll

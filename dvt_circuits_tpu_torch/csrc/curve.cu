@@ -5,11 +5,22 @@
 // R = 2^384 (curve/fp.py), and converts at its edges.
 //
 // C1 fp_mont_mul replaces the XLA dvt_circuits_tpu/curve/fp.py:mont_mul
-// (_mul_columns' band-matrix dot_general, _normalize, cond_sub_p).  One
-// thread per product.  Bound: bytes.  A product moves 768 bytes (two
-// elements in, one out, 256 bytes each in int64 limbs) and does 300 32-bit
-// multiplies: 0.4 multiplies a byte, far below the card's ~5 IMAD per byte
-// of device memory.
+// (_mul_columns' band-matrix dot_general, _normalize, cond_sub_p).  Bound:
+// bytes.  A product moves 768 bytes (two elements in, one out, 256 bytes
+// each in int64 limbs) and does 300 32-bit multiplies: 0.4 multiplies a
+// byte, far below the card's ~5 IMAD per byte of device memory.  A thread
+// reading its own 256-byte row straight from device memory would make each
+// warp load touch 32 rows 256 bytes apart, 8 bytes of each 32-byte sector.
+// So a persistent grid (as many blocks as fit on the card) walks tiles of
+// kTile products (csrc/fp_tile.cuh): warp 0 sends a tile's a and b rows
+// into shared memory by bulk asynchronous copies (cp.async.bulk, completing
+// on the stage's mbarrier), a group of consecutive rows a copy, so that one
+// warp issues few copies a tile; the groups lie 16 bytes apart, so each
+// thread unpacks its row with 16-byte loads on banks no other thread of its
+// quarter-warp touches; kStages stages, so the next tiles stream in while
+// this one is multiplied.  Each thread runs the CIOS product and packs the
+// result into its out row; the block then stores the tile's rows 16 bytes
+// a thread, coalesced.
 //
 // C2 g1_msm_windowed replaces dvt_circuits_tpu/curve/g1.py:_msm_jit
 // (scalar_mul_windowed + _tree_reduce).  A group of 4 lanes per point (8
@@ -76,15 +87,16 @@
 // with products, 7 of sums alone) and an addition a set bit (5 and 9),
 // one after another.
 //
-// C1 and C3 run their point operations in one thread (C1 one product a
-// thread, C3's stages one point operation a thread); C2 and C4 spread each
-// point operation over lanes.
+// C1 runs one product a thread over tiles staged in shared memory; C3's
+// stages run one point operation a thread; C2 and C4 spread each point
+// operation over lanes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bls12_381.cuh"
 #include "bls12_381_lanes.cuh"
+#include "fp_tile.cuh"
 
 namespace {
 
@@ -98,7 +110,7 @@ constexpr int kSortThreads = 128;
 constexpr int kSumThreads = 128;
 // C3b: the sorted entries one thread adds (g1.py:BUCKET_CHUNK; C3b's time
 // follows it, and 8 was the fastest of 8, 16 and 32 at every input
-// curve/chunk_sweep.py times); C3c: the groups of consecutive buckets a
+// curve/sweep.py c3 times); C3c: the groups of consecutive buckets a
 // window is cut into, one thread each (g1.py:WINDOW_GROUPS)
 constexpr int kChunk = 8;
 constexpr int kGroups = 64;
@@ -153,13 +165,71 @@ __device__ __forceinline__ void store_point(int64_t* out, const G1& p) {
   bls::store(out + 2 * bls::NLIMBS, p.z);
 }
 
-__global__ void __launch_bounds__(256) fp_mont_mul_kernel(const int64_t* __restrict__ a,
-                                                          const int64_t* __restrict__ b,
-                                                          int64_t* __restrict__ out, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bls::store(out + i * bls::NLIMBS,
-             bls::mul(bls::load(a + i * bls::NLIMBS), bls::load(b + i * bls::NLIMBS)));
+// bulk asynchronous copy of `bytes` (a multiple of 16) from device memory to
+// shared memory, counted on the mbarrier `bar` as it lands
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src), "r"(bytes),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  uint32_t done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// C1: out[i] = a[i] * b[i] * 2^-384 mod p; a, b and out 16-byte aligned.
+// The second launch bound lets ptxas take the registers the product needs:
+// without it, ptxas caps them low enough to keep a value in a stack frame.
+__global__ void __launch_bounds__(bls::tile::kTile, 1) fp_mont_mul_kernel(
+    const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_t* __restrict__ out,
+    int64_t n) {
+  namespace tile = bls::tile;
+  extern __shared__ __align__(16) int64_t slots[];  // fp_tile.cuh's layout
+  __shared__ __align__(8) uint64_t full[tile::kStages];
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < tile::kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(full + s)))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // warp 0: lane 0 arms the stage's barrier with the tile's bytes, then
+  // lanes 0 .. 2 kGroups - 1 send its groups of rows, a then b, one bulk
+  // copy each
+  auto fetch = [&](int64_t k, int stage) {
+    if (t >= 32) return;
+    const int rows = tile::tile_rows(k, n);
+    if (t == 0)
+      asm volatile(
+          "fence.proxy.async.shared::cta;\n\t"
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+              static_cast<uint32_t>(__cvta_generic_to_shared(full + stage))),
+          "r"(rows * 2 * tile::kRowBytes)
+          : "memory");
+    __syncwarp();
+    for (int c = t; c < 2 * tile::kGroups; c += 32)
+      tile::tile_copy(slots, stage, a, b, k, rows, c,
+                      [&](int64_t* dst, const int64_t* src, int bytes) {
+                        bulk_copy(dst, src, bytes, full + stage);
+                      });
+  };
+  tile::mont_mul_tiles(
+      slots, out, n, blockIdx.x, gridDim.x, t, fetch,
+      [&](int stage, uint32_t parity) { mbar_wait(full + stage, parity); },
+      [] { __syncthreads(); });
 }
 
 // -- C2 ----------------------------------------------------------------------
@@ -450,13 +520,38 @@ unsigned blocks_for(int64_t n, int threads) {
 
 }  // namespace
 
-// out[i] = a[i] * b[i] * 2^-384 mod p for n elements of 32 int64 limbs
+// out[i] = a[i] * b[i] * 2^-384 mod p for n elements of 32 int64 limbs; a,
+// b and out contiguous and 16-byte aligned.  One launch: as many blocks as
+// the card holds at once, at most one a tile.
 extern "C" int fp_mont_mul(const void* a, const void* b, void* out, long long n, void* stream) {
-  fp_mont_mul_kernel<<<blocks_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  static int resident[64] = {};  // blocks the whole card holds at once, by device
+  int device;
+  if (cudaError_t e = cudaGetDevice(&device)) return static_cast<int>(e);
+  int& blocks = resident[device % 64];
+  if (blocks == 0) {
+    int sms, per_sm;
+    if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))
+      return static_cast<int>(e);
+    if (cudaError_t e = cudaFuncSetAttribute(fp_mont_mul_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bls::tile::kSmemBytes))
+      return static_cast<int>(e);
+    if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fp_mont_mul_kernel, bls::tile::kTile, bls::tile::kSmemBytes))
+      return static_cast<int>(e);
+    blocks = sms * per_sm;
+  }
+  const int64_t tiles = bls::tile::tile_count(n);
+  const unsigned grid = static_cast<unsigned>(tiles < blocks ? tiles : blocks);
+  fp_mont_mul_kernel<<<grid, bls::tile::kTile, bls::tile::kSmemBytes,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(a), static_cast<const int64_t*>(b),
       static_cast<int64_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
+
+// C1's products a tile (the tests' and chip_smoke.py's tail sizes)
+extern "C" int fp_mont_mul_tile() { return bls::tile::kTile; }
 
 // out (3 x 32 int64 limbs, Jacobian) = sum_i digits_i * P_i for n points
 // (x, y, z: n x 32 int64 limbs each; digits: n x 64 int32, MSB first);

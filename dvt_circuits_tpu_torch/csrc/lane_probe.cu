@@ -1,6 +1,6 @@
 // Latency probes on the card, for the design of kernels C2 and C4
 // (curve/lane_probe.py times them): chains of dependent operations in one
-// block, in the one-thread form that C1 and C3 run (bls12_381.cuh: the
+// block, in the one-thread form that C3 runs (bls12_381.cuh: the
 // product and the point operations out of line) and in the lane form of C2
 // and C4 (bls12_381_lanes.cuh).  A chain of `reps` operations, timed at two
 // lengths, gives one operation's latency without the launch.  Not on any
@@ -45,7 +45,7 @@ __device__ void put_g2(uint32_t* w, const G2& p) {
 }
 
 // thread t, `reps` times on io[t] = (x, y): form 0 x = x * y out of line
-// (C1, C3), form 1 x = x * y inline (C2, C4), form 2 (x, y) = (x + y, x)
+// (C3), form 1 x = x * y inline (C1, C2, C4), form 2 (x, y) = (x + y, x)
 // (the lanes' sum, lanes::lin)
 __global__ void fp_chain_kernel(uint32_t* io, int reps, int form) {
   uint32_t* s = io + threadIdx.x * 2 * NW;

@@ -10,10 +10,12 @@ commit: ``git archive <parent> dvt_circuits_tpu_torch | tar -x -C
 build/parent``, a git-ignored directory).  Both build their kernels at
 once, one process each; then each is timed in a process of its own, other,
 this, this, other.  Each first checks its results (C1 against
-``mont_mul_plain`` on a sample, C2, C3 and C4 against the host oracle),
-then times, with CUDA-event means after warm-up (ms), C1 on 2^16 products,
-C2 at 1,024 and 4,096 points, C3 at 4,096 points and C4 at 16 and 1,024
-points, on ``chip_smoke.py``'s inputs.  Prints the card and one JSON line.
+``mont_mul_plain`` on a sample and the edge rows, C2, C3 and C4 against the
+host oracle), then times, with CUDA-event means after warm-up (ms), C1 on
+1,024, 2^16 and 2^20 products (``chip_smoke.c1_timed``: the call, and the
+kernel alone, raw launches through ctypes), C2 at 1,024 and 4,096 points, C3 at 4,096 points and C4
+at 16 and 1,024 points, on ``chip_smoke.py``'s inputs.  Prints the card and
+one JSON line.
 """
 
 from __future__ import annotations
@@ -38,11 +40,8 @@ def _smoke():
 
 def _child(root: str, build_only: bool) -> None:
     sys.path.insert(0, root)
-    import numpy as np
-    import torch
-
     from dvt_circuits_tpu_torch import kernels
-    from dvt_circuits_tpu_torch.curve import fp, g1, g2
+    from dvt_circuits_tpu_torch.curve import g1, g2
     from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 
     kernels.build_all(("curve",))
@@ -50,15 +49,8 @@ def _child(root: str, build_only: bool) -> None:
         return
     smoke = _smoke()
     out = {"root": root}
-    rng = np.random.default_rng(smoke.SEED + 10)
-    n = smoke.C1_PAIRS
-    top = int(fp.P_INT >> (12 * 31))
-    limbs = rng.integers(0, 1 << 12, (2, n, 32), dtype=np.int64)
-    limbs[..., 31] = rng.integers(0, top, (2, n))
-    a, b = (torch.as_tensor(x, device="cuda") for x in limbs)
-    if not torch.equal(fp.mont_mul(a[:256], b[:256]), fp.mont_mul_plain(a[:256], b[:256])):
-        raise AssertionError("C1 differs from mont_mul_plain")
-    out["C1 65536 products"] = smoke._time_ms(lambda: fp.mont_mul(a, b), 100)
+    for n in smoke.C1_PRODUCTS:
+        out.update(smoke.c1_timed(n))
     for m in smoke.MSM_POINTS:
         points, scalars, want = smoke._bench_points(m)
         p = g1.from_affine_points(points, "cuda")

@@ -6,8 +6,9 @@ values in Montgomery form with R = 2^384.  Limbs are held in int64 (CPU
 ``uint32`` lacks ``+``, ``>>`` and ``<``); every result is normalized and
 below p, so its limbs equal the JAX package's bit for bit.
 
-``mont_mul`` is the wrapper of kernel C1 (``csrc/curve.cu:fp_mont_mul``):
-a CUDA tensor launches it, a CPU tensor takes ``mont_mul_plain``, the JAX
+``mont_mul`` is the wrapper of kernel C1 (``csrc/curve.cu:fp_mont_mul``,
+its tiles in ``csrc/fp_tile.cuh``): a CUDA tensor launches it, a CPU
+tensor takes ``mont_mul_plain``, the JAX
 algorithm in plain PyTorch ops (schoolbook column sums, carry passes, a
 conditional subtraction of p).  The column sums are an outer product read
 along its anti-diagonals (sliding windows, a view), not a matrix product
@@ -148,7 +149,24 @@ def _library():
     lib.fp_mont_mul.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_longlong, ctypes.c_void_p]
     lib.fp_mont_mul.restype = ctypes.c_int
+    lib.fp_mont_mul_tile.restype = ctypes.c_int
     return lib
+
+
+def _operands(a: torch.Tensor, b: torch.Tensor):
+    """(a, b, shape): both broadcast to their common shape, contiguous and
+    16-byte aligned, as C1's bulk copies take them.  An operand that already
+    is so passes as it is; a broadcast, strided or 8-byte-aligned one (a
+    view whose storage offset is odd in limbs) is copied into a fresh
+    tensor."""
+    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+
+    def ready(x):
+        if x.shape == shape and x.is_contiguous() and x.data_ptr() % 16 == 0:
+            return x
+        return x.expand(shape).clone(memory_format=torch.contiguous_format)
+
+    return ready(a), ready(b), shape
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -156,8 +174,9 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     below p, normalized.
 
     A CPU tensor takes ``mont_mul_plain``; a CUDA tensor launches kernel C1
-    (``csrc/curve.cu:fp_mont_mul``, one thread per product) or raises.  C1
-    replaces the XLA ``dvt_circuits_tpu/curve/fp.py:mont_mul``."""
+    (``csrc/curve.cu:fp_mont_mul``: tiles of products staged in shared
+    memory, one product a thread) once, or raises.  C1 replaces the XLA
+    ``dvt_circuits_tpu/curve/fp.py:mont_mul``."""
     if a.dtype != torch.int64 or b.dtype != torch.int64:
         raise ValueError(f"expected int64 limb tensors, got {a.dtype}, {b.dtype}")
     if a.device != b.device:
@@ -168,9 +187,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {a.device}")
     if a.shape[-1] != NLIMBS or b.shape[-1] != NLIMBS:
         raise ValueError(f"expected {NLIMBS} limbs on the last axis")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    a = a.expand(shape).contiguous()
-    b = b.expand(shape).contiguous()
+    a, b, shape = _operands(a, b)
     out = torch.empty(shape, dtype=torch.int64, device=a.device)
     n = out.numel() // NLIMBS
     if n:

@@ -1,5 +1,5 @@
 """Latencies of one Fp product and one point operation on the card, in the
-one-thread form of C1 and C3 and in the lane form of C2 and C4
+one-thread form of C3 and in the lane form of C2 and C4
 (``csrc/lane_probe.cu``): the measurements that chose C2's and C4's design.
 
     python3 -m dvt_circuits_tpu_torch.curve.lane_probe

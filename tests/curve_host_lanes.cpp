@@ -1,7 +1,9 @@
-// Host build of dvt_circuits_tpu_torch/csrc/bls12_381_lanes.cuh for
-// tests/test_torch_curve_host.py: the CUDA qualifiers defined away, a
-// std::thread a lane, and __syncwarp a barrier of the warp's threads, so the
-// lane programs run as the kernels of csrc/curve.cu run them, step by step.
+// Host build of dvt_circuits_tpu_torch/csrc/bls12_381_lanes.cuh and
+// fp_tile.cuh for tests/test_torch_curve_host.py and test_torch_fp_tile.py:
+// the CUDA qualifiers defined away, a std::thread a lane, and __syncwarp a
+// barrier of the warp's threads, so the lane programs run as the kernels of
+// csrc/curve.cu run them, step by step; C1's tile loop runs with a memcpy
+// for its bulk copies and a barrier of its block's threads.
 //
 //   g++ -std=c++20 -O1 -pthread -shared -fPIC -I <csrc> -o lib.so curve_host_lanes.cpp
 //
@@ -44,7 +46,12 @@ inline T __ldg(const T* p) {
   return *p;
 }
 
+struct alignas(16) longlong2 {
+  long long x, y;
+};
+
 #include "bls12_381_lanes.cuh"
+#include "fp_tile.cuh"
 
 namespace {
 
@@ -191,6 +198,37 @@ void host_g2_scalar_mul(const uint32_t* pts, const int32_t* bits, uint32_t* out,
       lanes::g2_double_and_add(slots.data(), bits + i * lanes::SCALAR_BITS, lane);
       copy_words(out + i * 2 * PW, slots.data(), 2 * PW, lane, 32);
     });
+}
+
+// C1 (fp_tile.cuh:mont_mul_tiles) over `grid` blocks, one after another, a
+// std::thread each of a block's threads: thread 0 copies a tile's groups of
+// rows where the kernel's warp 0 starts bulk copies, and the mbarrier wait,
+// like __syncthreads, is a barrier of the block's threads
+int host_fp_tile() { return bls::tile::kTile; }
+
+void host_fp_tile_mul(const int64_t* a, const int64_t* b, int64_t* out, long long n, int grid) {
+  namespace tile = bls::tile;
+  for (int block = 0; block < grid; ++block) {
+    std::vector<longlong2> shared(tile::kSmemBytes / sizeof(longlong2));
+    int64_t* smem = reinterpret_cast<int64_t*>(shared.data());
+    std::barrier<> bar(tile::kTile);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < tile::kTile; ++t)
+      threads.emplace_back([&, t] {
+        auto fetch = [&](int64_t k, int stage) {
+          if (t != 0) return;
+          for (int c = 0; c < 2 * tile::kGroups; ++c)
+            tile::tile_copy(smem, stage, a, b, k, tile::tile_rows(k, n), c,
+                            [](int64_t* dst, const int64_t* src, int bytes) {
+                              std::memcpy(dst, src, bytes);
+                            });
+        };
+        auto sync = [&] { bar.arrive_and_wait(); };
+        tile::mont_mul_tiles(smem, out, n, block, grid, t, fetch,
+                             [&](int, uint32_t) { sync(); }, sync);
+      });
+    for (auto& th : threads) th.join();
+  }
 }
 
 }  // extern "C"

@@ -145,17 +145,32 @@ def test_grind_kernel_matches_plain(card, pos):
     assert p2.poseidon2_grind(base, pos, 12, max(want - 5, 0), 11) == want
 
 
-@pytest.mark.parametrize("n", [1, 1000])
-def test_fp_mont_mul_kernel_matches_plain(card, n):
+# n = tiles * kTile + extra: one product, a tile less one, a tile and one,
+# 1,000, and 2^16 + 3 over many tiles; each also on views whose rows start 8
+# bytes off a 16-byte boundary (the wrapper copies them for the bulk copies)
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("tiles, extra", [(0, 1), (1, -1), (1, 1), (0, 1000), (0, 65539)],
+                         ids=["1", "T-1", "T+1", "1000", "65539"])
+def test_fp_mont_mul_kernel_matches_plain(card, tiles, extra, misaligned):
+    n = tiles * fp._library().fp_mont_mul_tile() + extra
     rng = np.random.default_rng(n)
-    vals = [int.from_bytes(rng.bytes(48), "big") % host.P for _ in range(n)]
-    vals += [0, 1, host.P - 1, host.P - 2]
+    vals = [int.from_bytes(rng.bytes(48), "big") % host.P for _ in range(min(n, 1000))]
+    vals = (vals * (n // len(vals) + 1))[:n] + [0, 1, host.P - 1, host.P - 2]
     a = torch.as_tensor(np.stack([fp.int_to_limbs(v) for v in vals]), device=card)
     b = a.flip(0)
+    want = fp.mont_mul_plain(a, b)
+    if misaligned:
+        views = []
+        for x in (a, b):
+            view = torch.empty(x.numel() + 1, dtype=torch.int64, device=card)[1:].view(x.shape)
+            view.copy_(x)
+            assert view.data_ptr() % 16 == 8
+            views.append(view)
+        a, b = views
     before = fp.mont_mul.launches
     got = fp.mont_mul(a, b)
     assert fp.mont_mul.launches == before + 1
-    assert torch.equal(got, fp.mont_mul_plain(a, b))
+    assert torch.equal(got, want)
 
 
 def _edge_batch(rng):

@@ -1,7 +1,8 @@
 """The lane core of kernels C2 and C4 (``csrc/bls12_381_lanes.cuh`` and the
 programs ``curve/lanes.py`` writes into ``csrc/bls12_381_progs.cuh``), built
 for the host with g++ (``tests/curve_host_lanes.cpp``: a thread a lane,
-``__syncwarp`` a barrier) and held limb for limb to the port's plain
+``__syncwarp`` a barrier; the library also runs C1's tile loop, which
+``test_torch_fp_tile.py`` tests) and held limb for limb to the port's plain
 versions on the CPU: the product and sums to ``fp``, the point operations
 to ``g1``/``g2``'s ``add`` and ``double`` (P = Q, P = −Q and the identity
 included), the windowed pass to ``g1.scalar_mul_windowed``, the tree to
@@ -44,6 +45,7 @@ def lib(tmp_path_factory):
     lib.host_g1_windowed.argtypes = [vp, vp, vp, i]
     lib.host_g1_tree.argtypes = [vp, vp, i]
     lib.host_g2_scalar_mul.argtypes = [vp, vp, vp, i]
+    lib.host_fp_tile_mul.argtypes = [vp, vp, vp, ctypes.c_longlong, i]
     return lib
 
 
