@@ -89,6 +89,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      with its launches;
   9. finalization 7-of-10 the same way (its g1mul table 2^16 × 4314, LDE
      2^18), with its device memory peak, unprofiled;
+  9b. the sharded prover (phase ``dist``): min(cards, 4) ranks spawned over
+     NCCL, one a card (``parallel/mesh.py:spawn``), each with its launch
+     counts reset before each path and read after it: the 7-of-10 curve
+     fault sharded over every rank (cold, warm, and with ``DVT_EP=1``),
+     ``prove_batch`` of two scenarios over ``dp``, ``dist_msm`` at 4,096
+     points and, on two cards or more, finalization 7-of-10 sharded; every
+     container equal to the single-card one (phases 8 and 9 keep theirs;
+     ``--only dist`` proves them here) on every rank, the leaf sponge one
+     launch a tree on every rank, each path's time and peak device memory
+     a rank; the sharded curve fault accepted by the strict verifier on the
+     card; the CLI ``prove`` and ``verify --show-report`` under
+     ``torchrun --nproc-per-node`` (its proof file equal to the
+     single-card container);
  10. where the time of one g1mul table goes (the prover's phases timed
      one by one at the curve fault's table shape), and its constraint
      quotient both through ``eval_tensor`` and the generic ``eval``:
@@ -136,6 +149,7 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -923,19 +937,22 @@ def _wrappers() -> dict:
 
 
 class _TreeCount:
-    """Counts, while active, the Merkle trees committed (each ``MerkleTree``
-    and each ``merkle_root`` call, through whichever module holds the name)
-    and the batched opening checks (``verify_openings_batch``).  ``check``
-    then holds the leaf sponge to one launch for each of them: a tree that
-    took more or none, or rows hashed by another route, fail the run."""
+    """Counts, while active, the Merkle trees committed (each ``MerkleTree``,
+    each ``merkle_root`` call and each sharded subtree, ``build_levels``,
+    through whichever module holds the name) and the batched opening checks
+    (``verify_openings_batch``).  ``check`` then holds the leaf sponge to one
+    launch for each of them: a tree that took more or none, or rows hashed
+    by another route, fail the run."""
 
     def __enter__(self):
+        from dvt_circuits_tpu_torch.parallel import dist_fri, dist_stark  # noqa: F401
         from dvt_circuits_tpu_torch.pcs import fri, merkle  # noqa: F401  (holders of the names)
         from dvt_circuits_tpu_torch.stark import prover, verifier  # noqa: F401
 
         self.trees = self.batches = 0
         targets = [(merkle.MerkleTree, "__init__", "trees")]
-        counted = {id(merkle.merkle_root): "trees", id(merkle.verify_openings_batch): "batches"}
+        counted = {id(merkle.merkle_root): "trees", id(merkle.build_levels): "trees",
+                   id(merkle.verify_openings_batch): "batches"}
         for name, mod in list(sys.modules.items()):
             if name.startswith("dvt_circuits_tpu_torch."):
                 targets += [(mod, attr, counted[id(value)])
@@ -1111,12 +1128,13 @@ def _log_tables(container: dict) -> list:
 
 
 @contextlib.contextmanager
-def _phase_memory():
+def _phase_memory(targets=None):
     """While active, each phase of ``stark.prover.prove`` (LDE, commit, host
-    copy of a committed matrix, quotient, openings, DEEP, FRI) is timed on
-    the host clock between two synchronizes and followed by the device
-    memory allocated and the peak so far; yields the list of (phase, shape
-    of its first tensor argument, ms, allocated GiB, peak GiB)."""
+    copy of a committed matrix, quotient, openings, DEEP, FRI), or each
+    (holder, name) of ``targets``, is timed on the host clock between two
+    synchronizes and followed by the device memory allocated and the peak so
+    far; yields the list of (phase, shape of its first tensor argument, ms,
+    allocated GiB, peak GiB)."""
     from dvt_circuits_tpu_torch.pcs.merkle import MerkleTree
     from dvt_circuits_tpu_torch.stark import prover as pr
 
@@ -1139,9 +1157,10 @@ def _phase_memory():
 
         return timed
 
-    targets = [(pr, name) for name in ("lde_body", "MerkleTree", "quotient_body",
-                                       "openings_body", "deep_body", "fri_prove")]
-    targets.append((MerkleTree, "_materialize"))
+    if targets is None:
+        targets = [(pr, name) for name in ("lde_body", "MerkleTree", "quotient_body",
+                                           "openings_body", "deep_body", "fri_prove")]
+        targets.append((MerkleTree, "_materialize"))
     saved = [(holder, name, getattr(holder, name)) for holder, name in targets]
     for holder, name, fn in saved:
         setattr(holder, name, wrap(name, fn))
@@ -2187,9 +2206,215 @@ def phase_node(tmp: Path) -> dict:
     return launches
 
 
+#: seconds the ranks of phase ``dist`` may take, spawned to the last one joined
+DIST_TIMEOUT = 900
+#: most ranks phase ``dist`` spawns
+DIST_MAX_WORLD = 4
+
+
+def _dist_rank(rank: int, world: int, cases: dict) -> dict:
+    """One rank of phase ``dist`` (NCCL, card ``rank``): each sharded path
+    with the launch counts set to 0 just before it and read just after,
+    with the trees it committed, its wall time and its peak device memory.
+    Containers come back as digests (rank 0's also whole)."""
+    from dvt_circuits_tpu_torch.curve import g1
+    from dvt_circuits_tpu_torch.parallel import dist_stark
+    from dvt_circuits_tpu_torch.parallel.mesh import Mesh
+    from dvt_circuits_tpu_torch.prover import pipeline
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
+
+    os.environ["DVT_DIST"] = "1"  # shard over the group even at world 1
+    out = {}
+
+    def run(name: str, fn, phases=None):
+        _reset_counts()
+        with _TreeCount() as trees, _phase_memory(phases or []) as rows:
+            t0 = time.perf_counter()
+            value = fn()
+            torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0, "trees": trees.trees,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: f.launches for n, f in _wrappers().items()}}
+        if phases:
+            rec["phases"] = {}
+            for phase, _, ms, _, _ in rows:
+                rec["phases"][phase] = rec["phases"].get(phase, 0.0) + ms
+        if isinstance(value, dict):
+            rec["timing"], rec["digest"] = value["timing"], pipeline.container_digest(value)
+            if rank == 0:
+                rec["container"] = value
+        elif isinstance(value, list):
+            rec["digest"] = [pipeline.container_digest(c) for c in value]
+        else:
+            rec["value"] = value
+        out[name] = rec
+
+    def prove(circuit, data):
+        return lambda: pipeline.prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+
+    run("curve-fault cold", prove("bad-share", cases["curve"]))
+    run("curve-fault", prove("bad-share", cases["curve"]))
+    os.environ["DVT_EP"] = "1"
+    run("curve-fault EP", prove("bad-share", cases["curve"]))
+    del os.environ["DVT_EP"]
+    batch_mesh = Mesh({"dp": world, "sp": 1}, "cuda")
+    run("prove_batch", lambda: pipeline.prove_batch("bad-share", cases["batch"], True,
+                                                    DEFAULT_CONFIG, mesh=batch_mesh))
+    mesh = Mesh({"sp": world}, "cuda")
+    run("dist_msm", lambda: g1.dist_msm(*cases["msm"], mesh))
+    if world >= 2:
+        run("finalization", prove("finalization", cases["finalization"]))
+        # each sharded phase (and any table proven on one card) timed
+        phases = [(dist_stark, name) for name in (
+            "_commit", "constraint_fold", "quotient_chunks", "_openings", "deep_body", "_fri",
+            "gather_sharded_opening")] + [(pipeline, "stark_prove")]
+        run("finalization, phases timed", prove("finalization", cases["finalization"]), phases)
+    return out
+
+
+def _dist_reference(circuit: str, data, kept) -> dict:
+    """A single-card container of ``data``: ``kept`` (an earlier phase's) or
+    proven here."""
+    from dvt_circuits_tpu_torch.prover.pipeline import prove_circuit
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
+
+    if kept is None:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kept = prove_circuit(circuit, data, True, DEFAULT_CONFIG, device="cuda")
+        _log(f"dist: single-card {circuit} reference proven here in "
+             f"{time.perf_counter() - t0:.3f} s, timing {kept['timing']}, device memory peak "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return kept
+
+
+def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> dict:
+    """The sharded prover over NCCL, one rank a card on min(cards, 4) cards:
+    the 7-of-10 curve fault sharded (cold, warm, and with ``DVT_EP=1``),
+    ``prove_batch`` of two scenarios over ``dp``, ``dist_msm`` at 4,096
+    points, and, on two cards or more, finalization 7-of-10 sharded; each
+    container equal to the single-card one on every rank, the sharded curve
+    fault accepted by the strict verifier on the card, every rank's leaf
+    sponge one launch a tree; then the CLI ``prove`` and ``verify
+    --show-report`` under ``torchrun``.  Returns rank 0's launch counts,
+    summed over its paths."""
+    from dvt_circuits_tpu_torch.curve import g1
+    from dvt_circuits_tpu_torch.parallel.mesh import spawn
+    from dvt_circuits_tpu_torch.prover.pipeline import container_digest, load_proof, verify_proof
+
+    world = min(torch.cuda.device_count(), DIST_MAX_WORLD)
+    second = com.shared_data_bad_secret(1, 2, True)
+    curve_container = _dist_reference("bad-share", curve_data, curve_container)
+    n_tables = 1 + len(curve_container["gadgets"])
+    want = {"curve": container_digest(curve_container),
+            "second": container_digest(_dist_reference("bad-share", second, None))}
+    points, scalars, oracle = _bench_points(MSM_POINTS[-1])
+    single_msm = g1.msm(points, scalars, device="cuda")
+    if single_msm != oracle:
+        raise AssertionError("g1.msm differs from the host oracle at 4,096 points")
+    cases = {"curve": curve_data, "batch": [curve_data, second], "msm": (points, scalars)}
+    if world >= 2:
+        fin_data = com.finalization_data()
+        want["finalization"] = container_digest(
+            _dist_reference("finalization", fin_data, fin_container))
+        cases["finalization"] = fin_data
+    else:
+        _log("dist: one card on this machine, so the ranks run at world 1 over NCCL; sp > 1 "
+             "is not exercised here (the CPU tests hold sp = 2, 4 and 8 over Gloo), nor "
+             "the sharded finalization")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # rank 0 shares card 0 with this process
+    t0 = time.perf_counter()
+    ranks = spawn(_dist_rank, world, backend="nccl", device="cuda", timeout=DIST_TIMEOUT,
+                  args=(cases,))
+    _log(f"dist: {world} NCCL rank(s) spawned, every path run and joined in "
+         f"{time.perf_counter() - t0:.3f} s")
+
+    expected = {"curve-fault cold": _K1_PROVE, "curve-fault": _K1_PROVE,
+                "curve-fault EP": _K1_PROVE, "prove_batch": _K1_PROVE,
+                # one partial a rank: the fold of the partials (C1) needs two
+                "dist_msm": ("g1_msm_windowed",) + (("fp_mont_mul",) if world >= 2 else ()),
+                "finalization": _K1_PROVE, "finalization, phases timed": _K1_PROVE}
+    digests = {"curve-fault cold": want["curve"], "curve-fault": want["curve"],
+               "curve-fault EP": want["curve"], "prove_batch": [want["curve"], want["second"]],
+               "finalization": want.get("finalization"),
+               "finalization, phases timed": want.get("finalization")}
+    for rank, out in enumerate(ranks):
+        for name, rec in out.items():
+            counts = rec["launches"]
+            k1 = sum(v for k, v in counts.items() if k.startswith("poseidon2_"))
+            extra = f", prove_ms {rec['timing']['prove_ms']}" if "timing" in rec else ""
+            if "phases" in rec:
+                extra += ", phases (ms, synchronized) " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in rec["phases"].items())
+            _log(f"dist rank {rank} {name}: {rec['s']:.3f} s{extra}, device memory peak "
+                 f"{rec['peak_gib']:.3f} GiB, {rec['trees']} trees, K1 launches {k1} "
+                 f"{ {k: v for k, v in counts.items() if v} }")
+            # prove_batch's dp groups past the batch's length prove nothing,
+            # and nor do EP's ranks past one range a table
+            idle = ((name == "prove_batch" and rank >= len(cases["batch"]))
+                    or (name == "curve-fault EP" and rank >= n_tables))
+            missing = [k for k in expected[name] if counts[k] == 0 and not idle]
+            if missing:
+                raise AssertionError(f"dist rank {rank} {name}: kernels {missing} not launched")
+            if name != "dist_msm" and counts["poseidon2_hash_rows"] != rec["trees"]:
+                raise AssertionError(f"dist rank {rank} {name}: {counts['poseidon2_hash_rows']} "
+                                     f"leaf-sponge launches for {rec['trees']} trees")
+            if name == "dist_msm":
+                if rec["value"] != single_msm:
+                    raise AssertionError(f"dist rank {rank}: dist_msm differs from g1.msm")
+            elif rec["digest"] != digests[name]:
+                raise AssertionError(f"dist rank {rank} {name}: container differs from the "
+                                     f"single-card one")
+    _log(f"dist: on {world} rank(s) the sharded curve fault (cold, warm, DVT_EP=1), "
+         f"prove_batch over dp = {world}"
+         + (" and finalization 7-of-10" if world >= 2 else "")
+         + " equal the single-card containers on every rank; dist_msm at 4,096 points equals "
+           "g1.msm and the host oracle; leaf sponge one launch a tree on every rank")
+    res = verify_proof(ranks[0]["curve-fault"]["container"], "bad-share", strict=True,
+                       device="cuda")
+    if (res.binding, res.g1_relations) != ("curve-bound+sig", 1):
+        raise AssertionError(f"the port's verifier returned {res} for the sharded curve fault")
+    _log(f"dist: the sharded curve-fault container verifies on cuda: {res}")
+
+    # the CLI as a user runs it on this host's cards
+    scenario, proof = tmp / "dist_scenario.json", tmp / "dist_proof.bin"
+    scenario.write_text(json.dumps(curve_data.to_json(True)))
+    env = dict(os.environ, DVT_DIST="1" if world == 1 else "auto")
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", "dvt_circuits_tpu_torch.cli", "--auth-commitment"]
+    for args in (["prove", "--type=bad-share", "-i", str(scenario), "-o", str(proof)],
+                 ["verify", "--type=bad-share", "-i", str(proof), "--show-report",
+                  "--require-curve-binding"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(run + args, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"torchrun CLI {args[0]} exited {res.returncode}:\n"
+                                 f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        fingerprints = [ln for ln in res.stdout.splitlines() if "keccak256: " in ln.lower()]
+        if len(fingerprints) != 1:
+            raise AssertionError(f"torchrun CLI {args[0]}: {len(fingerprints)} fingerprint "
+                                 f"lines (rank 0 alone prints)")
+        _log(f"dist: torchrun --nproc-per-node={world} CLI {args[0]}: exit 0 in "
+             f"{time.perf_counter() - t0:.3f} s")
+    if container_digest(load_proof(str(proof))) != want["curve"]:
+        raise AssertionError("the torchrun CLI's proof differs from the single-card container")
+    if "binding: curve-bound+sig" not in res.stdout:
+        raise AssertionError("torchrun CLI verify did not report curve-bound+sig")
+    _log("dist: the torchrun CLI's proof file equals the single-card container; verify "
+         "reports curve-bound+sig")
+    summed = {}
+    for rec in ranks[0].values():
+        for k, v in rec["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    return summed
+
+
 #: the phases ``--only`` may name, in the order they run
 PHASES = ("kernels", "curve", "pre-curve", "probe", "keccak-f", "curve-fault",
-          "encrypted-share", "finalization", "g1-breakdown", "gpu-cpu", "cli-curve", "node")
+          "encrypted-share", "finalization", "dist", "g1-breakdown", "gpu-cpu", "cli-curve",
+          "node")
 
 
 def main(argv=None) -> int:
@@ -2257,16 +2482,22 @@ def main(argv=None) -> int:
         curve_data = com.shared_data_bad_secret(0, 1, True)
         if "curve" in only:
             by_path["curve"] = phase_curve_package()
+        curve_container = fin_container = None
         if "curve-fault" in only:
-            _, by_path["bad-share curve"], by_path["bad-share verify"] = phase_curve_path(
-                "bad-share", curve_data, [256] + [32] * 6, 12, 1)
+            curve_container, by_path["bad-share curve"], by_path["bad-share verify"] = (
+                phase_curve_path("bad-share", curve_data, [256] + [32] * 6, 12, 1))
             _, by_path["bad-partial-key"], by_path["bad-partial-key verify"] = phase_curve_path(
                 "bad-partial-key", com.bad_partial_key_data(1, True), [32] * 6, 11, 2)
         if "encrypted-share" in only:
             by_path.update(phase_encrypted_share(kk, Path(tmp)))
         if "finalization" in only:
-            _, by_path["finalization"], by_path["finalization verify"] = phase_curve_path(
-                "finalization", com.finalization_data(), None, 16, com.n, profiled=False)
+            fin_container, by_path["finalization"], by_path["finalization verify"] = (
+                phase_curve_path("finalization", com.finalization_data(), None, 16, com.n,
+                                 profiled=False))
+        if "dist" in only:
+            by_path["dist"] = phase_dist(com, curve_data, curve_container, fin_container,
+                                         Path(tmp))
+            curve_container = fin_container = None
         if "g1-breakdown" in only:
             phase_g1_breakdown()
         if "gpu-cpu" in only:

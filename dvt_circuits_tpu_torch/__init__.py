@@ -15,6 +15,9 @@ the reference).  Module names mirror the JAX package:
     ``verify_proof``
   * ``curve``   — BLS12-381 Fp, G1 (windowed and bucket MSM) and G2, each
     device algorithm a CUDA kernel beside its plain PyTorch version
+  * ``parallel`` — the sharded prover over ``torch.distributed`` (one
+    process a card; NCCL on the card, Gloo on the CPU): meshes, collectives,
+    sharded NTT, Merkle, FRI and STARK, the (dp, sp, tp) commit step
   * ``service`` — the HTTP node (``prove`` / ``execute`` / spec routes)
   * ``cli``     — ``prove`` / ``execute`` / ``validate-schema`` /
     ``get-schema`` / ``verify`` / ``node``

@@ -13,6 +13,15 @@ proof, a failed schema validation or any host error → 1), plus
 --show-report`` print the artifact fingerprint keccak256(sha256(proof
 file)) through the Keccak kernel.
 
+Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) ``run`` starts the
+process group itself (NCCL with ``--device cuda``, each rank on card
+``LOCAL_RANK``; Gloo with ``--device cpu``), so ``prove`` shards every
+container over the ranks (``DVT_DIST=auto``); rank 0 alone prints and
+writes files:
+
+    torchrun --nproc-per-node 4 -m dvt_circuits_tpu_torch.cli \
+        --auth-commitment prove --type=bad-share -i scenario.json -o proof.bin
+
     python -m dvt_circuits_tpu_torch.cli --auth-commitment prove \\
         --type=bad-share -i scenario.json -o proof.bin
     python -m dvt_circuits_tpu_torch.cli verify --type=bad-share \\
@@ -23,7 +32,9 @@ file)) through the Keccak kernel.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import os
 import sys
@@ -216,6 +227,33 @@ def _node(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _torchrun_ranks(device: str):
+    """Under ``torchrun``, the process group for the command (NCCL on the
+    card, Gloo on the CPU; never a fallback from one to the other), with
+    every rank but 0 silent; elsewhere, nothing."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        yield
+        return
+    import torch
+    import torch.distributed as dist
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend)
+    try:
+        if dist.get_rank() == 0:
+            yield
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                yield
+    finally:
+        dist.destroy_process_group()
+
+
 def run(argv=None) -> int:
     # the git provenance banner goes to stderr, so machine-read stdout
     # (get-schema) stays clean; DVT_NO_BANNER=1 turns it off
@@ -224,6 +262,11 @@ def run(argv=None) -> int:
 
         print_banner()
     args = build_parser().parse_args(argv)
+    with _torchrun_ranks(getattr(args, "device", "cpu")):
+        return _run(args)
+
+
+def _run(args) -> int:
     auth = args.auth_commitment
     try:
         if args.command == "verify":
@@ -259,6 +302,8 @@ def run(argv=None) -> int:
             print(_style_error(f"Proof generation failed: {e}"))
             return 1
         path = args.output_file_path or f"{args.input_file}_proof.bin"
+        if _rank() != 0:  # every rank holds the same container; rank 0 writes it
+            return 0
         save_proof(container, path)
         print(_style_success("Proof saved to:"), path)
         print(f"Artifact keccak256: {_artifact_fingerprint(path, args.device)}")
@@ -269,6 +314,12 @@ def run(argv=None) -> int:
     except Exception as e:  # any unexpected host error → exit 1
         print(_style_error(f"{type(e).__name__}: {e}"))
         return 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def main() -> None:

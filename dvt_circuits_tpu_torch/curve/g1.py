@@ -290,6 +290,29 @@ def msm(points_affine, scalars, device="cuda"):
     return to_affine_points(tuple(c[None] for c in out))[0]
 
 
+def dist_msm(points_affine, scalars, mesh, axis_name: str = "sp"):
+    """``msm`` with the points in contiguous blocks over the ranks of
+    ``axis_name`` (``dvt_circuits_tpu/curve/g1.py:dist_msm``): the batch is
+    padded to a multiple of d with identity points, each rank sums its block
+    through ``msm_jacobian`` (C2 on the card), and the d Jacobian partials
+    are all-gathered and folded by ``_tree_reduce`` (products through C1).
+    Every rank calls it with the same arguments and gets the host affine
+    result."""
+    from ..parallel.comm import all_gather
+
+    ax = mesh.axis(axis_name)
+    pad = -len(points_affine) % ax.size
+    points = list(points_affine) + [None] * pad
+    scalars = list(scalars) + [0] * pad
+    per = len(points) // ax.size
+    mine = slice(ax.index * per, (ax.index + 1) * per)
+    part = msm_jacobian(from_affine_points(points[mine], ax.device),
+                        scalars_to_digits(scalars[mine], ax.device))
+    parts = all_gather(torch.stack(part), ax)  # (d, 3, 32)
+    out = _tree_reduce(tuple(c.contiguous() for c in parts.unbind(1)))
+    return to_affine_points(tuple(c[None] for c in out))[0]
+
+
 # ---------------------------------------------------------------------------
 # Pippenger bucket MSM with GLV decomposition.
 #

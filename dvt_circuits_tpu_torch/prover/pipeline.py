@@ -12,9 +12,16 @@ transcript, verifies every table and re-runs the SHA-256, curve and
 ChaCha20 bindings.  The container format is the JAX package's
 (``PROOF_FORMAT`` v7): each package verifies the other's containers.
 
-``prove_batch`` proves a batch on one device.  Not ported yet: the legacy
-wide ``g1`` gadget kind, which no v7 prover emits (``VerifyError``), and
-``prove_batch`` over a mesh's ``dp`` axis.
+The sharded path (``parallel/``, one process a card over
+``torch.distributed``) is wired in where the JAX package wires its mesh in:
+``prove_circuit`` shards every table over the world's ranks when a process
+group with more than one rank is up (``DVT_DIST=auto``, the default;
+``DVT_DIST=1`` shards over any initialized group and ``DVT_DIST=0`` proves
+on one device; ``DVT_EP=1`` proves the tables on separate ranges of ranks),
+and ``prove_batch(mesh=...)`` spreads a batch over the mesh's ``dp`` groups,
+each container sharded over its ``sp`` ranks.  Every rank returns the same
+container, equal to the single-device one.  Not ported yet: the legacy wide
+``g1`` gadget kind, which no v7 prover emits (``VerifyError``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..stark.config import DEFAULT_CONFIG, StarkConfig
 from ..stark.fused import prove_tables
 from ..stark.g1mul_air import G1MulAir
 from ..stark.poseidon2_air import Poseidon2StreamAir, hash_stream_words, stream_to_words
+from ..stark.prover import prove as stark_prove
 from ..stark.sha256_air import Sha256Air, digest_from_publics, pad_message
 from ..stark.verifier import StarkError
 from ..stark.verifier import verify as stark_verify
@@ -139,6 +147,49 @@ def _stream_words(
     return header + stream_to_words(stream)
 
 
+def _dist_prove_entries(entries, config: StarkConfig, mesh) -> list:
+    """Prove a container's tables sharded over the mesh's ``sp`` ranks
+    (``dvt_circuits_tpu/prover/pipeline.py:_dist_prove_entries``): a table
+    whose LDE rows split over them with a block of at least ``blowup`` rows
+    goes through ``dist_prove``; a smaller one through the single-device
+    prover on the same challenger, on every rank.  ``DVT_EP=1`` proves the
+    tables on separate ranges of ranks (``ep_prove_tables``).  The
+    container's bytes are the single-device prover's either way."""
+    from ..parallel.dist_stark import dist_prove, ep_prove_tables
+
+    if os.environ.get("DVT_EP") == "1":
+        return ep_prove_tables(entries, config, mesh)
+    d = mesh.axis("sp").size
+    challenger = DuplexChallenger(mesh.device)
+    proofs = []
+    for e_air, e_trace, e_publics in entries:
+        n_lde = len(e_trace) << config.log_blowup
+        if n_lde % d == 0 and n_lde // d >= config.blowup:
+            proofs.append(dist_prove(e_air, e_trace, e_publics, config, mesh, "sp", challenger))
+        else:
+            proofs.append(stark_prove(e_air, e_trace, e_publics, config, challenger))
+    return proofs
+
+
+def _sharding_mesh(device):
+    """The world mesh ``prove_circuit`` shards over, or None for one device
+    (``DVT_DIST``: ``auto`` shards when a process group of more than one
+    rank is up, ``1`` over any initialized group, ``0`` never)."""
+    flag = os.environ.get("DVT_DIST", "auto")
+    if flag not in ("1", "auto"):
+        return None
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    if flag == "1" and not up:
+        raise ProveError("DVT_DIST=1 needs an initialized torch.distributed process group")
+    if not up or (flag == "auto" and dist.get_world_size() == 1):
+        return None
+    from ..parallel.mesh import world_mesh
+
+    return world_mesh(device)
+
+
 def prove_circuit(
     circuit_name: str,
     data,
@@ -146,8 +197,14 @@ def prove_circuit(
     config: StarkConfig = DEFAULT_CONFIG,
     setup: str = "secp-commitment",
     device="cuda",
+    mesh=None,
 ) -> dict:
-    """Execute the witness and produce the binding proof container."""
+    """Execute the witness and produce the binding proof container.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``), the tables are sharded over
+    its ``sp`` ranks, which all call this with the same arguments; without
+    one, ``DVT_DIST`` decides (``_sharding_mesh``).  The sharded container
+    equals the single-device one on every rank (checked by its digest)."""
     t0 = time.time()
     with recording() as recorded_hashes, chacha_recording() as recorded_chacha, \
             g1_recording() as recorded_g1:
@@ -262,12 +319,17 @@ def prove_circuit(
     entries.extend(g1_entries)
     if chacha_entry is not None:
         entries.append(chacha_entry)
-    proofs = prove_tables(entries, config, device)
+    if mesh is None:
+        mesh = _sharding_mesh(device)
+    if mesh is None:
+        proofs = prove_tables(entries, config, device)
+    else:
+        proofs = _dist_prove_entries(entries, config, mesh)
     for g, p in zip(gadgets, proofs[1:]):
         g["proof"] = p
     prove_time = time.time() - t0
 
-    return {
+    container = {
         "format": PROOF_FORMAT,
         "circuit": circuit_name,
         "setup": setup,
@@ -288,6 +350,13 @@ def prove_circuit(
         },
         "timing": {"witness_ms": int(witness_time * 1000), "prove_ms": int(prove_time * 1000)},
     }
+    if mesh is not None:
+        from ..parallel.comm import all_gather_object
+
+        digests = all_gather_object(container_digest(container), mesh.axis("sp"))
+        if len(set(digests)) != 1:
+            raise ProveError(f"the ranks' sharded containers differ: {digests}")
+    return container
 
 
 #: most keystream blocks one ChaCha20 table carries (padded count included)
@@ -572,11 +641,27 @@ def prove_batch(
     config: StarkConfig = DEFAULT_CONFIG,
     setup: str = "secp-commitment",
     device="cuda",
+    mesh=None,
 ) -> list:
-    """Prove a batch of independent scenarios on one device, one container
-    each, equal to ``prove_circuit``'s one by one (the JAX package's
-    ``prove_batch`` without a mesh)."""
-    return [prove_circuit(circuit_name, d, auth, config, setup, device) for d in datas]
+    """Prove a batch of independent scenarios, one container each, equal to
+    ``prove_circuit``'s one by one.
+
+    Without a ``mesh``, on one device.  With one (every rank calls this
+    with the same arguments), the batch is spread over the mesh's ``dp``
+    groups: group i proves ``datas[i::dp]``, each container sharded over
+    the group's ``sp`` ranks; the containers are then all-gathered, so every
+    rank returns the whole list in input order
+    (``dvt_circuits_tpu/prover/pipeline.py:prove_batch``)."""
+    datas = list(datas)
+    if mesh is None:
+        return [prove_circuit(circuit_name, d, auth, config, setup, device) for d in datas]
+    from ..parallel.comm import all_gather_object
+
+    dp = mesh.axis("dp")
+    mine = [prove_circuit(circuit_name, d, auth, config, setup, mesh.device, mesh=mesh)
+            for d in datas[dp.index :: dp.size]]
+    groups = all_gather_object(mine, dp)
+    return [groups[i % dp.size][i // dp.size] for i in range(len(datas))]
 
 
 def save_proof(container: dict, path: str) -> None:

@@ -225,19 +225,25 @@ def quotient_chunk_rows(width: int, n_lde: int) -> int:
     return min(n_lde, 1 << (rows.bit_length() - 1))
 
 
-def _rows_at(mat: torch.Tensor, r0: int, r1: int, shift: int) -> torch.Tensor:
-    """Rows (r + shift) mod n for r in [r0, r1): a view unless they wrap,
-    else an index gather of those rows alone."""
+def _rows_at(mat: torch.Tensor, r0: int, r1: int, shift: int, halo=None) -> torch.Tensor:
+    """Rows r + shift for r in [r0, r1): a view unless they run past the
+    last row.  Past it they continue into ``halo`` (the ``shift`` rows that
+    follow ``mat``, a row block's cyclic successor) or, without one, wrap to
+    the first rows by an index gather of those rows alone."""
     n = mat.shape[0]
     if r1 + shift <= n:
         return mat[r0 + shift : r1 + shift]
+    if halo is not None:
+        return torch.cat([mat[min(r0 + shift, n) :], halo[max(r0 + shift - n, 0) : r1 + shift - n]])
     idx = (torch.arange(r0, r1, device=mat.device) + shift) % n
     return mat.index_select(0, idx)
 
 
-def _tensor_constraints(air: Air, t_lde, p_lde, alpha, publics, tables, blowup: int):
+def _tensor_constraints(air: Air, t_lde, p_lde, alpha, publics, tables, blowup: int,
+                        halos=(None, None)):
     """Σ αⁱ·cᵢ over every constraint of ``air.eval_tensor``, evaluated over
-    row chunks of the LDE domain → ((n_lde, 4), constraint count)."""
+    row chunks of the LDE rows → ((rows, 4), constraint count).  ``halos``:
+    the rows that follow the trace and preprocessed blocks (``_rows_at``)."""
     n_lde = t_lde.shape[0]
     chunk_rows = quotient_chunk_rows(air.width, n_lde)
     dev = t_lde.device
@@ -248,8 +254,9 @@ def _tensor_constraints(air: Air, t_lde, p_lde, alpha, publics, tables, blowup: 
     for r0 in range(0, n_lde, chunk_rows):
         r1 = min(n_lde, r0 + chunk_rows)
         sels = {k: tables[k][r0:r1] for k in ("first", "last", "transition")}
-        tb = TensorBuilder(t_lde[r0:r1], _rows_at(t_lde, r0, r1, blowup), p_lde[r0:r1],
-                           _rows_at(p_lde, r0, r1, blowup), pub, sels, pows)
+        tb = TensorBuilder(t_lde[r0:r1], _rows_at(t_lde, r0, r1, blowup, halos[0]),
+                           p_lde[r0:r1], _rows_at(p_lde, r0, r1, blowup, halos[1]), pub,
+                           sels, pows)
         air.eval_tensor(tb)
         acc[r0:r1] = tb.acc
         count = tb.count
@@ -266,57 +273,83 @@ def lde_body(mat: torch.Tensor, config: StarkConfig) -> torch.Tensor:
     return coset_lde(mat, config.log_blowup, config.shift)
 
 
-def quotient_body(air: Air, t_lde, p_lde, alpha, publics, tables, log_n: int,
-                  config: StarkConfig):
-    """Constraint quotient and its chunked commitment matrix.
+def constraint_fold(air: Air, t_lde, p_lde, alpha, publics, tables, blowup: int,
+                    halos=(None, None)):
+    """Σ αⁱ·cᵢ over every constraint at each LDE row → ((rows, 4), count).
 
     An AIR with ``eval_tensor`` is evaluated through ``TensorBuilder`` over
     row chunks of ``quotient_chunk_rows`` rows (the result does not depend
     on it); any other AIR drives its generic ``eval`` through
-    ``ProverBuilder``.  Returns (q_matrix (n_lde, 4·blowup), q_col_coeffs
-    (n, 4·blowup), constraint count)."""
-    n = 1 << log_n
-    roll = config.blowup
+    ``ProverBuilder``.  The rows may be a block of the domain: ``halos``
+    then holds the ``blowup`` rows that follow each matrix (None: the
+    matrices are the whole domain, and the next rows wrap)."""
     if getattr(air, "eval_tensor", None):
-        folded, count = _tensor_constraints(air, t_lde, p_lde, alpha, publics, tables, roll)
-    else:
-        nxt = torch.roll(t_lde, -roll, dims=0)
-        pre_nxt = torch.roll(p_lde, -roll, dims=0) if air.preprocessed_width else p_lde
-        builder = ProverBuilder(t_lde, nxt, p_lde, pre_nxt, publics, tables, alpha)
-        air.eval(builder)
-        folded, count = builder.finalize(), builder.count
-    quotient = ext.mul_base(folded, tables["zh_inv"])  # (n_lde, 4)
+        return _tensor_constraints(air, t_lde, p_lde, alpha, publics, tables, blowup, halos)
+
+    def nxt(mat, halo):
+        if halo is None:
+            return torch.roll(mat, -blowup, dims=0)
+        return torch.cat([mat[blowup:], halo])
+
+    pre_nxt = nxt(p_lde, halos[1]) if air.preprocessed_width else p_lde
+    builder = ProverBuilder(t_lde, nxt(t_lde, halos[0]), p_lde, pre_nxt, publics, tables, alpha)
+    air.eval(builder)
+    return builder.finalize(), builder.count
+
+
+def quotient_chunks(quotient: torch.Tensor, log_n: int, config: StarkConfig):
+    """The (n_lde, 4) quotient's chunked commitment matrix: chunk k holds
+    coefficients [k·n, (k+1)·n), one BB4 column group each, and the chunk
+    LDEs are independent columns of one transform.  Returns (q_matrix
+    (n_lde, 4·blowup), q_col_coeffs (n, 4·blowup))."""
+    n = 1 << log_n
     q_coeffs = coset_evals_to_coeffs(quotient, config.shift)
-    # chunk k = coefficients [k·n, (k+1)·n) of the quotient, one BB4 column
-    # group each; the chunk LDEs are independent columns of one transform
     q_col_coeffs = torch.cat([q_coeffs[k * n : (k + 1) * n] for k in range(config.blowup)], dim=1)
     q_matrix = coeffs_to_coset_evals(q_col_coeffs, config.log_blowup, config.shift)
-    return q_matrix, q_col_coeffs, count
+    return q_matrix, q_col_coeffs
+
+
+def quotient_body(air: Air, t_lde, p_lde, alpha, publics, tables, log_n: int,
+                  config: StarkConfig):
+    """Constraint quotient and its chunked commitment matrix.  Returns
+    (q_matrix (n_lde, 4·blowup), q_col_coeffs (n, 4·blowup), constraint
+    count)."""
+    folded, count = constraint_fold(air, t_lde, p_lde, alpha, publics, tables, config.blowup)
+    quotient = ext.mul_base(folded, tables["zh_inv"])  # (n_lde, 4)
+    return (*quotient_chunks(quotient, log_n, config), count)
+
+
+def cols_at(coeffs: torch.Tensor, point) -> torch.Tensor:
+    """(n, w) coefficient columns at a BB4 point → (w, 4) int64 values."""
+    pw = ext.powers(point, coeffs.shape[0], coeffs.device)  # (n, 4)
+    return torch.stack(
+        [(coeffs * pw[:, c : c + 1] % P).sum(dim=0) % P for c in range(ext.D)], dim=1
+    )
 
 
 def _eval_cols_at(coeffs: torch.Tensor, point) -> np.ndarray:
     """(n, w) coefficient columns at a BB4 point → (w, 4) uint32 values."""
-    pw = ext.powers(point, coeffs.shape[0], coeffs.device)  # (n, 4)
-    vals = torch.stack(
-        [(coeffs * pw[:, c : c + 1] % P).sum(dim=0) % P for c in range(ext.D)], dim=1
-    )
-    return vals.cpu().numpy().astype(np.uint32)
+    return cols_at(coeffs, point).cpu().numpy().astype(np.uint32)
+
+
+def coeffs_head(lde: torch.Tensor, shift: int, n: int) -> torch.Tensor:
+    """The first n coefficients of LDE columns over shift·K; they alone stay
+    alive (the transform's buffer is as large as the LDE)."""
+    return coset_evals_to_coeffs(lde, shift)[:n].clone()
 
 
 def openings_body(air: Air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n: int,
                   config: StarkConfig) -> dict:
     """Openings of trace, quotient and preprocessed columns at ζ and g·ζ."""
     n = 1 << log_n
-    # the first n coefficients alone stay alive (the transform's buffer is
-    # as large as the LDE)
-    t_coeffs = coset_evals_to_coeffs(t_lde, config.shift)[:n].clone()
+    t_coeffs = coeffs_head(t_lde, config.shift, n)
     out = {
         "t_zeta": _eval_cols_at(t_coeffs, zeta),
         "t_gzeta": _eval_cols_at(t_coeffs, gzeta),
         "q_zeta": _eval_cols_at(q_col_coeffs, zeta),
     }
     if air.preprocessed_width:
-        p_coeffs = coset_evals_to_coeffs(p_lde, config.shift)[:n].clone()
+        p_coeffs = coeffs_head(p_lde, config.shift, n)
         out["p_zeta"] = _eval_cols_at(p_coeffs, zeta)
         out["p_gzeta"] = _eval_cols_at(p_coeffs, gzeta)
     return out

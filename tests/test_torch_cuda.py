@@ -326,3 +326,46 @@ def test_g2_scalar_mul_kernel_edge_shapes(card, n):
     assert _limbs_equal(got, g2.scalar_mul_plain(_cpu(p), bits.cpu()))
     assert g2.to_host_points(got) == [host.g2_mul(q, k) if q else None
                                       for q, k in zip(points, scalars)]
+
+
+def _stream_entry():
+    from dvt_circuits_tpu_torch.stark.poseidon2_air import Poseidon2StreamAir, stream_to_words
+
+    frames = [bytes.fromhex("ab" * 32).hex().encode()] * 3 + [b"99" * 48]
+    words = stream_to_words(b"".join(len(f).to_bytes(8, "little") + f for f in frames))
+    air = Poseidon2StreamAir(max(1, -(-len(words) // 8)))
+    return (air, *air.generate_trace(words))
+
+
+def _rank_sharded(rank, world, points, scalars):
+    """One NCCL rank: the stream table sharded over every card, then
+    ``dist_msm`` over them, each with its kernels' launches."""
+    from dvt_circuits_tpu_torch.parallel.dist_stark import dist_prove
+    from dvt_circuits_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"sp": world}, "cuda")
+    before = p2.poseidon2_hash_rows.launches
+    proof = dist_prove(*_stream_entry(), TEST_CONFIG, mesh)
+    sponge = p2.poseidon2_hash_rows.launches - before
+    before = g1.msm_jacobian.launches
+    msm = g1.dist_msm(points, scalars, mesh)
+    return proof, sponge, msm, g1.msm_jacobian.launches - before
+
+
+def test_sharded_stream_table_and_dist_msm_on_every_card(card):
+    from dvt_circuits_tpu_torch.parallel.mesh import spawn
+    from dvt_circuits_tpu_torch.pcs.challenger import DuplexChallenger
+    from dvt_circuits_tpu_torch.stark.prover import prove
+
+    rng = np.random.default_rng(7)
+    points = [host.g1_mul(host.G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 64)]
+    scalars = [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(64)]
+    world = torch.cuda.device_count()
+    ranks = spawn(_rank_sharded, world, backend="nccl", device="cuda", timeout=600,
+                  args=(points, scalars))
+    want = prove(*_stream_entry(), TEST_CONFIG, DuplexChallenger("cpu"))
+    msm = g1.msm(points, scalars, device="cpu")
+    for proof, sponge, got, c2 in ranks:
+        assert proof == want
+        assert sponge > 0 and c2 == 1
+        assert got == msm
