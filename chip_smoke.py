@@ -101,11 +101,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      a rank; the sharded curve fault accepted by the strict verifier on the
      card; the CLI ``prove`` and ``verify --show-report`` under
      ``torchrun --nproc-per-node`` (its proof file equal to the
-     single-card container);
+     single-card container); the EP commit demo (``ep_commit_tables`` of 4
+     tables in the 7-of-10 tables' shapes, padded to 4,096 x 4,314, over
+     ep = world when 4 splits over it) and the PP demo
+     (``pp_commit_pipeline`` of 8 microbatches of 4,096 x 336 over S =
+     world stages; at world < 3 its ValueError is asserted instead), their
+     roots equal to the single-card ``merkle_root`` of each coset LDE on
+     every rank, EP's leaf sponge one launch a table of the rank, PP's
+     stage kernels on their ranks alone;
  10. where the time of one g1mul table goes (the prover's phases timed
      one by one at the curve fault's table shape), and its constraint
      quotient both through ``eval_tensor`` and the generic ``eval``:
      bit-equal, each timed, with its launches (under 10,000 for the first);
+ 10b. the wide G1 chip (phase ``g1-chip``): ``G1PolyAir`` for the 7-of-10
+     curve fault's relation at production widths (k = 7: 512 x 26,477,
+     LDE 2,048): K1b on its trace LDE (3,310 absorbed blocks a row)
+     bit-equal to ``hash_rows_plain``, its quotient through ``eval_tensor``
+     and the generic ``eval`` bit-equal, a legacy ``g1``-kind container
+     [stream, SHA-256, G1PolyAir] proven on the card with the launch
+     counts reset and accepted by the strict verifier on the card as
+     ``curve-bound``, refused with a tampered output public; the
+     reduced-width table's proof equal on the card and the CPU;
+     ``sha256_batch`` of 2^12 messages of 3 blocks equal to hashlib;
  11. GPU == CPU at the CPU tests' inputs: the 2-of-3 curve fault,
      bad-partial-key, bad-encrypted-share and finalization at
      ``TEST_CONFIG`` give equal container bytes;
@@ -1563,6 +1580,269 @@ def phase_g1_breakdown() -> None:
         raise AssertionError(f"the g1mul tensor quotient took {q_launches} launches")
 
 
+def _g1_parts(data, config):
+    """The curve fault's host side, as ``prove_circuit`` builds it at
+    ``config`` with its prover stubbed: (container without proofs, the
+    SHA-256 table entry, the recorded curve relation).  The witness runs on
+    the host."""
+    from dvt_circuits_tpu_torch.prover import curve_glue, pipeline
+
+    captured = {"rels": []}
+    build_gadget, prove_tables = curve_glue.build_gadget, pipeline.prove_tables
+
+    def spy(rel, *args, **kwargs):
+        captured["rels"].append(rel)
+        return build_gadget(rel, *args, **kwargs)
+
+    def stub(entries, config, device="cuda"):
+        captured["entries"] = list(entries)
+        return [{"public_values": [int(v) for v in pub]} for _, _, pub in entries]
+
+    curve_glue.build_gadget, pipeline.prove_tables = spy, stub
+    try:
+        base = pipeline.prove_circuit("bad-share", data, True, config, device="cpu")
+    finally:
+        curve_glue.build_gadget, pipeline.prove_tables = build_gadget, prove_tables
+    if [g["kind"] for g in base["gadgets"]] != ["sha256", "g1mul"] or len(captured["rels"]) != 1:
+        raise AssertionError("unexpected tables for the curve fault")
+    return base, captured["entries"][1], captured["rels"][0]
+
+
+def _g1_entries(base, sha_entry, rel):
+    """The legacy ``g1``-kind container's tables: [stream, SHA-256,
+    ``G1PolyAir`` of the relation at production widths], the stream words
+    over its descriptors (kind id 3, extras [k, 256, 32, seed_ref,
+    init_ref]: the SHA-table indices the g1mul descriptor binds).  Returns
+    (entries, gadgets without proofs)."""
+    import copy
+
+    from dvt_circuits_tpu_torch.prover import pipeline
+    from dvt_circuits_tpu_torch.stark.g1_air import G1PolyAir
+    from dvt_circuits_tpu_torch.stark.poseidon2_air import Poseidon2StreamAir
+
+    seed_ref, init_ref = base["gadgets"][1]["extras"][2:4]
+    k = len(rel["points"])
+    air = G1PolyAir(k)
+    g1 = {"kind": "g1", "block_counts": [k], "stream_offsets": [None],
+          "extras": [k, 256, 32, seed_ref, init_ref], "proof": None}
+    gadgets = [copy.deepcopy(base["gadgets"][0]), g1]
+    words = pipeline._stream_words("bad-share", True, base["setup"],
+                                   bytes.fromhex(base["public_values"]), gadgets,
+                                   (base["gadgets_omitted"], base["chacha_omitted"], 0))
+    stream_air = Poseidon2StreamAir(1 << (max(1, -(-len(words) // 8)) - 1).bit_length())
+    entries = [(stream_air, *stream_air.generate_trace(words)), sha_entry,
+               (air, *air.generate_trace(rel["secret"], rel["dest_id"], rel["points"]))]
+    return entries, gadgets
+
+
+def _g1_container(base, gadgets, proofs) -> dict:
+    """The container of ``_g1_entries``'s tables and their ``proofs``."""
+    gadgets[0]["proof"], gadgets[1]["proof"] = proofs[1], proofs[2]
+    container = {key: value for key, value in base.items() if key != "timing"}
+    container.update(stark=proofs[0], gadgets=gadgets, g1_omitted=0)
+    return container
+
+
+#: the batch of the SHA-256 timing: 2^12 messages of 150 bytes (3 blocks)
+SHA_MESSAGES, SHA_MESSAGE_BYTES = 1 << 12, 150
+
+
+def phase_g1_chip(p2) -> tuple:
+    """The wide G1 chip (``G1PolyAir``) and the verifier's legacy ``g1``
+    gadget on the card, at production widths (sk 256, id 32) for the
+    7-of-10 curve fault's relation (k = 7: 512 × 26,477, LDE 2,048):
+
+      * the trace, preprocessed trace and publics as the host builds them,
+        and their copies on the card;
+      * K1b on the trace LDE (rows of 3,310 absorbed blocks) bit-equal to
+        ``hash_rows_plain``, timed with 1 and 4 lanes against its bound;
+      * the constraint quotient through ``eval_tensor`` and the generic
+        ``eval``: bit-equal, each timed (the first also with its launches);
+      * the [stream, SHA-256, G1PolyAir] container proven on the card (cold
+        with launch counts and the leaf sponge one launch a tree, warm with
+        each prover phase), accepted by the port's strict ``verify_proof``
+        on the card as ``curve-bound`` (launches counted, one leaf-sponge
+        launch a tree and opening batch), refused with a tampered output
+        public;
+      * a G1PolyAir proof at the JAX tests' reduced widths (sk 16, id 8,
+        k = 2: 32 × 26,477, ``TEST_CONFIG``) equal on the card and on the CPU
+        (the CPU prove at production widths takes minutes);
+      * ``sha256_batch`` at 2^12 messages of 3 blocks equal to hashlib, timed.
+
+    Returns the launch counts of the prove and of the verify."""
+    import copy
+
+    from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
+    from dvt_circuits_tpu_torch.field import babybear as bb
+    from dvt_circuits_tpu_torch.hash import sha256
+    from dvt_circuits_tpu_torch.hostcrypto.bls12_381 import G1_GEN, g1_mul
+    from dvt_circuits_tpu_torch.pcs.challenger import DuplexChallenger
+    from dvt_circuits_tpu_torch.prover.pipeline import VerifyError, verify_proof
+    from dvt_circuits_tpu_torch.stark import prover as pr
+    from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG as cfg
+    from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
+    from dvt_circuits_tpu_torch.stark.fused import prove_tables
+    from dvt_circuits_tpu_torch.stark.g1_air import G1PolyAir
+    from dvt_circuits_tpu_torch.utils import cbor
+
+    card = _card_line()
+    data = DkgCommittee(10, 7).shared_data_bad_secret(0, 1, True)
+    t0 = time.perf_counter()
+    base, sha_entry, rel = _g1_parts(data, cfg)
+    entries, gadgets = _g1_entries(base, sha_entry, rel)
+    air, trace, publics = entries[2]
+    _log(f"g1-chip: witness, SHA-256 table and G1PolyAir trace on the host in "
+         f"{time.perf_counter() - t0:.3f} s")
+    n = trace.shape[0]
+    log_n = n.bit_length() - 1
+    pre = air.preprocessed_trace(n)
+    if (air.k, trace.shape, pre.shape[1], len(publics)) != (7, (512, 26477), air.preprocessed_width,
+                                                            air.num_public_values):
+        raise AssertionError(f"unexpected G1PolyAir shape: k {air.k}, trace {trace.shape}")
+    t_dev = torch.as_tensor(trace.astype(np.int64), device="cuda")
+    p_dev = torch.as_tensor(pre.astype(np.int64), device="cuda")
+    pub_dev = torch.as_tensor(publics, dtype=torch.int64, device="cuda")
+    if not (np.array_equal(t_dev.cpu().numpy(), trace) and np.array_equal(p_dev.cpu().numpy(), pre)
+            and pub_dev.tolist() == publics):
+        raise AssertionError("the card's copies of the G1PolyAir trace differ from the host's")
+    (inf_a, xa, ya), (inf_b, xb, yb) = air.out_points(publics)
+    if (inf_a, (xa, ya)) != (0, g1_mul(G1_GEN, int.from_bytes(rel["secret"], "big"))):
+        raise AssertionError("G1PolyAir's pk result differs from g1_mul(G, sk)")
+    if (inf_a, xa, ya) == (inf_b, xb, yb):
+        raise AssertionError("the 7-of-10 curve fault's relation shows a valid share")
+    _log(f"g1-chip: G1PolyAir k = {air.k}, trace {trace.shape[0]} x {trace.shape[1]} "
+         f"({air.min_rows} rows used), preprocessed width {pre.shape[1]}, "
+         f"{len(publics)} publics; the card's copies equal the host's; pk = sk·G")
+
+    # K1b on rows of 26,477 columns: 3,310 absorbed blocks a row
+    t_lde = pr.lde_body(t_dev, cfg)
+    p_lde = pr.lde_body(p_dev, cfg)
+    n_lde, w = t_lde.shape
+    perms = n_lde * -(-w // 8)
+    plain, plain_ms = _cuda_ms(lambda: p2.hash_rows_plain(t_lde))
+    for lanes in _LANES:
+        with _lanes_forced(p2, lanes):
+            if not torch.equal(p2.poseidon2_hash_rows(t_lde), plain):
+                raise AssertionError(f"K1b ({lanes} lanes) disagrees with hash_rows_plain at "
+                                     f"{n_lde} x {w}")
+    bound = k1_bound_ms(perms, n_lde * (w + 8) * 8)
+    ms = {}
+    for lanes in _LANES:
+        with _lanes_forced(p2, lanes):
+            ms[lanes] = _time_ms(lambda: p2.poseidon2_hash_rows(t_lde), 5, warmup=1)
+    _log(f"g1-chip: K1b hash_rows {n_lde} x {w} ({-(-w // 8)} absorbed blocks a row, {perms} "
+         f"permutations): bit-equal to hash_rows_plain with 1 and 4 lanes; "
+         + ", ".join(f"{lanes} lanes {t:.6f} ms" for lanes, t in ms.items())
+         + f" (the wrapper picks {p2._lanes(n_lde)}); plain {plain_ms:.3f} ms (one call); bound "
+         f"{bound[0]:.6f} ms ({bound[1]}); share of the bound "
+         + ", ".join(f"{lanes} lanes {bound[0] / t:.4f}" for lanes, t in ms.items())
+         + f"; {card}")
+    del plain
+
+    # the constraint quotient through both builders
+    rng = np.random.default_rng(SEED + 11)
+    alpha = tuple(int(v) for v in rng.integers(0, bb.P, 4))
+    tables = pr._domain_tables(log_n, cfg.log_blowup, cfg.shift, torch.device("cuda"))
+    args = (t_lde, p_lde, alpha, publics, tables, log_n, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_matrix, q_col_coeffs, count = pr.quotient_body(air, *args)
+    torch.cuda.synchronize()
+    tensor_ms = (time.perf_counter() - t0) * 1e3
+    _, tensor_launches = _cuda_launches(lambda: pr.quotient_body(air, *args))
+    t0 = time.perf_counter()
+    generic = pr.quotient_body(_EvalOnly(air), *args)
+    torch.cuda.synchronize()
+    generic_ms = (time.perf_counter() - t0) * 1e3
+    if generic[2] != count or not (torch.equal(generic[0], q_matrix)
+                                   and torch.equal(generic[1], q_col_coeffs)):
+        raise AssertionError("the G1PolyAir eval_tensor quotient differs from the generic eval's")
+    # the generic eval's ~7e5 launches are not counted here: under the
+    # profiler they take minutes
+    _log(f"g1-chip: constraint quotient ({count} constraints, LDE {n_lde} x {w}) through "
+         f"eval_tensor {tensor_ms:.3f} ms in {tensor_launches} launches; through the generic eval "
+         f"{generic_ms:.3f} ms; bit-equal; {card}")
+    del t_lde, p_lde, generic, q_matrix, q_col_coeffs, t_dev, p_dev
+
+    # the g1-kind container on the card
+    _reset_counts()
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        proofs = prove_tables(entries, cfg, device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    launches = _read_counts("g1-chip", _K1_PROVE)
+    trees.check("g1-chip")
+    for name, proof in zip(("stream", "sha256", "g1"), proofs):
+        _log(f"g1-chip table {name}: rows 2^{proof['log_n']}, width {proof['width']}, LDE "
+             f"2^{proof['fri']['log_n']}, constraints {proof['constraint_count']}")
+    if proofs[2]["public_values"] != publics or proofs[2]["constraint_count"] != count:
+        raise AssertionError("the G1PolyAir proof carries other publics or constraints")
+    torch.cuda.reset_peak_memory_stats()
+    with _phase_memory() as rows:
+        t0 = time.perf_counter()
+        warm = prove_tables(entries, cfg, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    _log(f"g1-chip: [stream, sha256, G1PolyAir] proven on the card cold {cold_s:.3f} s, warm "
+         f"{warm_s:.3f} s (phases synchronized); {card}")
+    _log_phase_memory("g1-chip", rows)
+    if cbor.encode(warm) != cbor.encode(proofs):
+        raise AssertionError("the warm g1-chip proofs differ from the cold ones")
+    container = _g1_container(base, gadgets, proofs)
+    _reset_counts()
+    with _TreeCount() as trees:
+        t0 = time.perf_counter()
+        res = verify_proof(container, "bad-share", strict=True, device="cuda")
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+    verify_launches = _read_counts("g1-chip verify", _K1_VERIFY)
+    trees.check("g1-chip verify")
+    if (res.binding, res.g1_relations, res.g1_omitted, res.sig_checks) != ("curve-bound", 1, 0, 0):
+        raise AssertionError(f"the port's verifier returned {res} for the g1 container")
+    _log(f"g1-chip: the g1-kind container verifies on cuda in {verify_s:.3f} s: {res}; {card}")
+    bad = copy.deepcopy(container)
+    bad["gadgets"][1]["proof"]["public_values"][air.oa_base + 3] ^= 1
+    try:
+        verify_proof(bad, "bad-share", device="cuda")
+    except VerifyError as e:
+        if "STARK verification failed" not in str(e):
+            raise
+        _log(f"g1-chip: a tampered output public is refused: {e}")
+    else:
+        raise AssertionError("the port's verifier accepted a tampered G1PolyAir output public")
+    del proofs, warm, container, bad
+
+    # the card against the CPU at the JAX tests' reduced widths
+    small = G1PolyAir(2, sk_bits=16, id_bits=8)
+    rng = np.random.default_rng(SEED + 12)
+    cs = [g1_mul(G1_GEN, int(rng.integers(2, 1 << 60))) for _ in range(2)]
+    s_trace, s_pub = small.generate_trace(int(rng.integers(1, 1 << 16)).to_bytes(2, "big"),
+                                          int(rng.integers(1, 1 << 8)), cs)
+    gpu = pr.prove(small, s_trace, s_pub, TEST_CONFIG, DuplexChallenger("cuda"))
+    t0 = time.perf_counter()
+    cpu = pr.prove(small, s_trace, s_pub, TEST_CONFIG, DuplexChallenger("cpu"))
+    cpu_s = time.perf_counter() - t0
+    if cbor.encode(gpu) != cbor.encode(cpu):
+        raise AssertionError("the reduced-width G1PolyAir proof differs between the card and CPU")
+    _log(f"g1-chip: reduced-width G1PolyAir ({s_trace.shape[0]} x {s_trace.shape[1]}, "
+         f"TEST_CONFIG) proof bytes equal on the card and the CPU (CPU prove {cpu_s:.3f} s)")
+
+    # batched SHA-256, plain PyTorch on the card
+    msgs = [rng.bytes(SHA_MESSAGE_BYTES) for _ in range(SHA_MESSAGES)]
+    t0 = time.perf_counter()
+    digests = sha256.sha256_batch(msgs, device="cuda")
+    call_s = time.perf_counter() - t0
+    if digests != [hashlib.sha256(m).digest() for m in msgs]:
+        raise AssertionError("sha256_batch on the card differs from hashlib")
+    words = sha256.pack_messages(msgs, device="cuda")
+    words_ms = _time_ms(lambda: sha256.sha256_words(words), 5, warmup=1)
+    _log(f"g1-chip: sha256_batch of {SHA_MESSAGES} messages of {words.shape[0]} blocks on the "
+         f"card equals hashlib; sha256_words {words_ms:.3f} ms (CUDA events), the whole call "
+         f"{call_s * 1e3:.3f} ms (host packing and copies included); {card}")
+    return launches, verify_launches
+
+
 def phase_gpu_equals_cpu() -> None:
     """The CPU tests' inputs (2-of-3 committee, TEST_CONFIG): the card and
     the plain CPU path give equal containers, so JAX == port-CPU (the tests;
@@ -2212,6 +2492,32 @@ DIST_TIMEOUT = 900
 DIST_MAX_WORLD = 4
 
 
+#: phase ``dist``'s EP tables, padded to one shape: random standard-form
+#: words in the shapes of the 7-of-10 tables (stream, SHA-256, the curve
+#: fault's g1mul, ChaCha20); and its PP batch of microbatches (SHA-256 table
+#: shaped)
+EP_SHAPES = ((1 << 11, 32), (1 << 10, 336), (1 << 12, 4314), (1 << 7, 1080))
+PP_BATCH = (8, 1 << 12, 336)
+
+
+def _ep_pp_inputs():
+    """(padded EP tables (K, n, w), PP traces (B, n, w)) from a numpy seed."""
+    from dvt_circuits_tpu_torch.field.babybear import P
+    from dvt_circuits_tpu_torch.parallel.ep_tables import pad_tables
+
+    rng = np.random.default_rng(SEED + 13)
+    ragged = [rng.integers(0, P, size=shape, dtype=np.uint32) for shape in EP_SHAPES]
+    return pad_tables(ragged), rng.integers(0, P, size=PP_BATCH, dtype=np.uint32)
+
+
+def _pp_levels(n_lde: int, stages: int) -> list:
+    """The compression levels of each reduce stage (2..S−1) of
+    ``pp_commit_pipeline``: log2(n_lde) split by divmod, the earlier stages
+    taking the extra level."""
+    base, extra = divmod(n_lde.bit_length() - 1, stages - 2)
+    return [base + (1 if i < extra else 0) for i in range(stages - 2)]
+
+
 def _dist_rank(rank: int, world: int, cases: dict) -> dict:
     """One rank of phase ``dist`` (NCCL, card ``rank``): each sharded path
     with the launch counts set to 0 just before it and read just after,
@@ -2219,7 +2525,9 @@ def _dist_rank(rank: int, world: int, cases: dict) -> dict:
     Containers come back as digests (rank 0's also whole)."""
     from dvt_circuits_tpu_torch.curve import g1
     from dvt_circuits_tpu_torch.parallel import dist_stark
+    from dvt_circuits_tpu_torch.parallel.ep_tables import ep_commit_tables
     from dvt_circuits_tpu_torch.parallel.mesh import Mesh
+    from dvt_circuits_tpu_torch.parallel.pp_pipeline import pp_commit_pipeline
     from dvt_circuits_tpu_torch.prover import pipeline
     from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
 
@@ -2262,6 +2570,18 @@ def _dist_rank(rank: int, world: int, cases: dict) -> dict:
                                                     DEFAULT_CONFIG, mesh=batch_mesh))
     mesh = Mesh({"sp": world}, "cuda")
     run("dist_msm", lambda: g1.dist_msm(*cases["msm"], mesh))
+    ep_tables, pp_traces = _ep_pp_inputs()
+    if len(ep_tables) % world == 0:
+        ep_mesh = Mesh({"ep": world}, "cuda")
+        run("ep_commit_tables", lambda: ep_commit_tables(ep_tables, ep_mesh).cpu())
+    pp_mesh = Mesh({"pp": world}, "cuda")
+    if world >= 3:
+        run("pp_commit_pipeline", lambda: pp_commit_pipeline(pp_traces, pp_mesh).cpu())
+    else:
+        try:
+            pp_commit_pipeline(pp_traces, pp_mesh)
+        except ValueError as e:
+            out["pp refused"] = str(e)
     if world >= 2:
         run("finalization", prove("finalization", cases["finalization"]))
         # each sharded phase (and any table proven on one card) timed
@@ -2270,6 +2590,36 @@ def _dist_rank(rank: int, world: int, cases: dict) -> dict:
             "gather_sharded_opening")] + [(pipeline, "stark_prove")]
         run("finalization, phases timed", prove("finalization", cases["finalization"]), phases)
     return out
+
+
+def _check_ep_pp(rank: int, world: int, name: str, rec: dict, want: dict, n_tables: int,
+                 pp_shape) -> None:
+    """One rank's EP or PP run: roots equal to the single-card ones; EP's
+    leaf sponge one launch a table of the rank, with its levels; PP's stage
+    kernels on their ranks alone (stage 1 one leaf-sponge launch a
+    microbatch, each reduce stage one K1a launch a level a microbatch)."""
+    counts = rec["launches"]
+    k1 = {k: v for k, v in counts.items() if k.startswith("poseidon2_") and v}
+    if name == "ep_commit_tables":
+        roots, per = want["ep"], n_tables // world
+        ok = (counts["poseidon2_hash_rows"] == per == rec["trees"]
+              and counts["poseidon2_merkle_levels"] > 0)
+    else:
+        roots = want["pp"]
+        batch, n, _ = pp_shape
+        expected = {}
+        if rank == 1:
+            expected = {"poseidon2_hash_rows": batch}
+        elif rank >= 2:
+            expected = {"poseidon2_permute": batch * _pp_levels(n << 1, world)[rank - 2]}
+        ok = k1 == expected
+    _log(f"dist rank {rank} {name}: {rec['s']:.3f} s, device memory peak {rec['peak_gib']:.3f} "
+         f"GiB, {rec['trees']} trees, K1 launches {k1}")
+    if rec["value"].tolist() != roots:
+        raise AssertionError(f"dist rank {rank} {name}: roots differ from the single-card ones")
+    if not ok:
+        raise AssertionError(f"dist rank {rank} {name}: K1 launches {k1} are not the stages' "
+                             f"({rec['trees']} trees)")
 
 
 def _dist_reference(circuit: str, data, kept) -> dict:
@@ -2292,14 +2642,17 @@ def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> di
     """The sharded prover over NCCL, one rank a card on min(cards, 4) cards:
     the 7-of-10 curve fault sharded (cold, warm, and with ``DVT_EP=1``),
     ``prove_batch`` of two scenarios over ``dp``, ``dist_msm`` at 4,096
-    points, and, on two cards or more, finalization 7-of-10 sharded; each
-    container equal to the single-card one on every rank, the sharded curve
-    fault accepted by the strict verifier on the card, every rank's leaf
-    sponge one launch a tree; then the CLI ``prove`` and ``verify
-    --show-report`` under ``torchrun``.  Returns rank 0's launch counts,
-    summed over its paths."""
+    points, the EP and PP commit demos (PP from three cards), and, on two
+    cards or more, finalization 7-of-10 sharded; each container and root
+    equal to the single-card one on every rank, the sharded curve fault
+    accepted by the strict verifier on the card, every rank's leaf sponge
+    one launch a tree; then the CLI ``prove`` and ``verify --show-report``
+    under ``torchrun``.  Returns rank 0's launch counts, summed over its
+    paths."""
     from dvt_circuits_tpu_torch.curve import g1
+    from dvt_circuits_tpu_torch.ntt.ntt import coset_lde
     from dvt_circuits_tpu_torch.parallel.mesh import spawn
+    from dvt_circuits_tpu_torch.pcs.merkle import merkle_root
     from dvt_circuits_tpu_torch.prover.pipeline import container_digest, load_proof, verify_proof
 
     world = min(torch.cuda.device_count(), DIST_MAX_WORLD)
@@ -2322,6 +2675,12 @@ def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> di
         _log("dist: one card on this machine, so the ranks run at world 1 over NCCL; sp > 1 "
              "is not exercised here (the CPU tests hold sp = 2, 4 and 8 over Gloo), nor "
              "the sharded finalization")
+    # the EP and PP roots on one card: each padded table's and each
+    # microbatch's coset LDE (blowup 2, the demos' default) and merkle_root
+    ep_tables, pp_traces = _ep_pp_inputs()
+    for key, mats in (("ep", ep_tables), ("pp", pp_traces)):
+        want[key] = [merkle_root(coset_lde(torch.as_tensor(m.astype(np.int64), device="cuda"), 1))
+                     for m in mats]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # rank 0 shares card 0 with this process
     t0 = time.perf_counter()
@@ -2339,9 +2698,21 @@ def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> di
                "curve-fault EP": want["curve"], "prove_batch": [want["curve"], want["second"]],
                "finalization": want.get("finalization"),
                "finalization, phases timed": want.get("finalization")}
+    pp_refused = [out.pop("pp refused", None) for out in ranks]
+    if world < 3:
+        if pp_refused != ["pipeline needs at least 3 stages (lde, hash, reduce)"] * world:
+            raise AssertionError(f"dist: pp_commit_pipeline at S = {world}: {pp_refused}")
+        _log(f"dist: pp_commit_pipeline not run: S = {world} < 3 stages raises "
+             f"ValueError({pp_refused[0]!r}) on every rank (four cards run it)")
+    if len(ep_tables) % world:
+        _log(f"dist: ep_commit_tables not run: {len(ep_tables)} tables do not split over "
+             f"{world} ranks")
     for rank, out in enumerate(ranks):
         for name, rec in out.items():
             counts = rec["launches"]
+            if name in ("ep_commit_tables", "pp_commit_pipeline"):
+                _check_ep_pp(rank, world, name, rec, want, len(ep_tables), pp_traces.shape)
+                continue
             k1 = sum(v for k, v in counts.items() if k.startswith("poseidon2_"))
             extra = f", prove_ms {rec['timing']['prove_ms']}" if "timing" in rec else ""
             if "phases" in rec:
@@ -2366,6 +2737,12 @@ def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> di
             elif rec["digest"] != digests[name]:
                 raise AssertionError(f"dist rank {rank} {name}: container differs from the "
                                      f"single-card one")
+    _log(f"dist: ep_commit_tables of {len(ep_tables)} padded tables "
+         f"{tuple(ep_tables.shape[1:])}"
+         + (f" over ep = {world}" if len(ep_tables) % world == 0 else " (not run)")
+         + (f" and pp_commit_pipeline of {pp_traces.shape[0]} microbatches "
+            f"{tuple(pp_traces.shape[1:])} over S = {world} stages" if world >= 3 else "")
+         + " give the single-card merkle_root of every coset LDE on every rank")
     _log(f"dist: on {world} rank(s) the sharded curve fault (cold, warm, DVT_EP=1), "
          f"prove_batch over dp = {world}"
          + (" and finalization 7-of-10" if world >= 2 else "")
@@ -2413,8 +2790,8 @@ def phase_dist(com, curve_data, curve_container, fin_container, tmp: Path) -> di
 
 #: the phases ``--only`` may name, in the order they run
 PHASES = ("kernels", "curve", "pre-curve", "probe", "keccak-f", "curve-fault",
-          "encrypted-share", "finalization", "dist", "g1-breakdown", "gpu-cpu", "cli-curve",
-          "node")
+          "encrypted-share", "finalization", "dist", "g1-breakdown", "g1-chip", "gpu-cpu",
+          "cli-curve", "node")
 
 
 def main(argv=None) -> int:
@@ -2500,6 +2877,8 @@ def main(argv=None) -> int:
             curve_container = fin_container = None
         if "g1-breakdown" in only:
             phase_g1_breakdown()
+        if "g1-chip" in only:
+            by_path["g1-chip"], by_path["g1-chip verify"] = phase_g1_chip(p2)
         if "gpu-cpu" in only:
             phase_gpu_equals_cpu()
         if "cli-curve" in only:

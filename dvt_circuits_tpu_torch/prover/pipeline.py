@@ -20,8 +20,9 @@ group with more than one rank is up (``DVT_DIST=auto``, the default;
 on one device; ``DVT_EP=1`` proves the tables on separate ranges of ranks),
 and ``prove_batch(mesh=...)`` spreads a batch over the mesh's ``dp`` groups,
 each container sharded over its ``sp`` ranks.  Every rank returns the same
-container, equal to the single-device one.  Not ported yet: the legacy wide
-``g1`` gadget kind, which no v7 prover emits (``VerifyError``).
+container, equal to the single-device one.  The verifier also takes the
+legacy wide ``g1`` gadget kind (``stark/g1_air.py:G1PolyAir``), which no v7
+prover of either package emits.
 """
 
 from __future__ import annotations
@@ -34,14 +35,18 @@ from typing import Optional
 from ..circuits.guest_api import GuestResult, run_guest
 from ..circuits.registry import CIRCUITS, get_circuit
 from ..dkg.hash_recorder import chacha_recording, g1_recording, recording
+from ..hostcrypto import bls12_381 as _bls
 from ..pcs.challenger import DuplexChallenger
+from ..stark.bigfield import NLIMBS, limbs_to_int
 from ..stark.chacha20_air import ChaCha20Air, init_from_publics
 from ..stark.config import DEFAULT_CONFIG, StarkConfig
 from ..stark.fused import prove_tables
+from ..stark.g1_air import G1PolyAir
 from ..stark.g1mul_air import G1MulAir
 from ..stark.poseidon2_air import Poseidon2StreamAir, hash_stream_words, stream_to_words
 from ..stark.prover import prove as stark_prove
-from ..stark.sha256_air import Sha256Air, digest_from_publics, pad_message
+from ..stark.sha256_air import (Sha256Air, digest_from_publics, message_from_publics,
+                                pad_message)
 from ..stark.verifier import StarkError
 from ..stark.verifier import verify as stark_verify
 from ..utils import cbor
@@ -51,6 +56,12 @@ PROOF_FORMAT = "dvt-circuits-tpu/stark-proof/v7"
 
 #: gadget kind ids as absorbed into the stream-AIR header (_stream_words)
 _GADGET_KIND_IDS = {"sha256": 1, "chacha20": 2, "g1": 3, "g1mul": 4}
+
+#: production G1 chip scalar widths (the reference's 256-bit secrets and
+#: 32-bit ``bls_id_from_u32`` ids); pinned so a verifier reconstructs the
+#: exact AIR from the container
+_G1_SK_BITS, _G1_ID_BITS = 256, 32
+_G1_MAX_K = 32
 
 #: cap on per-proof SHA-256 gadget tables (the count omitted is recorded
 #: in the container, so the cap is never silent)
@@ -488,10 +499,8 @@ def verify_proof(
             elif kind == "chacha20":
                 _verify_chacha_gadget(entry, stream, sha_ctx, config, challenger)
             elif kind == "g1":
-                raise VerifyError(
-                    "the 'g1' gadget's table is not ported to the PyTorch verifier yet "
-                    "(the legacy wide G1 kind); verify this container with the JAX package"
-                )
+                _verify_g1_gadget(entry, stream, sha_ctx, config, challenger, auth)
+                g1_relations += 1
             else:
                 raise VerifyError(f"unknown gadget kind {kind!r}")
     except StarkError as e:
@@ -542,6 +551,144 @@ def _verify_sha_gadget(entry: dict, stream: bytes, config: StarkConfig,
         if not 0 <= off <= len(stream) - 64 or stream[off : off + 64] != digest_hex:
             raise VerifyError("gadget digest not bound to the committed stream")
     return g_air, g_publics
+
+
+def _g1_air(k: int) -> G1PolyAir:
+    return G1PolyAir(k, sk_bits=_G1_SK_BITS, id_bits=_G1_ID_BITS)
+
+
+def _parse_init_commitment(msg: bytes, pts) -> Optional[list]:
+    """Parse an initial-commitment SHA preimage (gen_id(16) ‖ n(1) ‖ k(1) ‖
+    len(1) ‖ len × compressed pubkeys) and return the decompressed affine
+    points iff they exactly match ``pts``."""
+    k = len(pts)
+    if len(msg) != 19 + 48 * k or msg[18] != k:
+        return None
+    out = []
+    for j in range(k):
+        try:
+            pt = _bls.g1_from_compressed(msg[19 + 48 * j : 19 + 48 * (j + 1)])
+        except _bls.InvalidPoint:
+            return None
+        if pt is None or (int(pt[0]), int(pt[1])) != (int(pts[j][0]), int(pts[j][1])):
+            return None
+        out.append(pt)
+    return out
+
+
+def _stream_frames(stream: bytes) -> list:
+    """Split a committed public-values stream into its length-prefixed
+    frames (``guest_api.GuestContext.commit`` framing)."""
+    frames = []
+    off = 0
+    while off < len(stream):
+        if off + 8 > len(stream):
+            raise ValueError("truncated stream frame header")
+        ln = int.from_bytes(stream[off : off + 8], "little")
+        off += 8
+        if off + ln > len(stream):
+            raise ValueError("truncated stream frame")
+        frames.append(stream[off : off + ln])
+        off += ln
+    return frames
+
+
+def _verify_g1_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfig,
+                      challenger: DuplexChallenger, auth: bool) -> None:
+    """Verify the legacy wide G1 curve-relation table (``G1PolyAir``) and
+    its bindings (``dvt_circuits_tpu/prover/pipeline.py:_verify_g1_gadget``,
+    check for check, with its messages): the extras, widths and ``k``;
+    ``check_publics``, then the STARK; the C_j bound to the SHA-proven
+    initial-commitment preimage, whose digest must be among the stream's
+    committed hashes; in auth mode the secret bound to the seed-exchange
+    preimage [32:64], the hash chain (its [0:32] is the initial-commitment
+    digest) and id = the sorted index of its [64:96] among the committed
+    hashes + 1; in no-auth mode the id inside the committee; and the two
+    results must differ (a proof exists only for the slashable mismatch)."""
+    extras = [int(v) for v in entry.get("extras", [])]
+    if len(extras) != 5:
+        raise VerifyError("g1 extras malformed")
+    k, sk_bits, id_bits, seed_ref, init_ref = extras
+    if sk_bits != _G1_SK_BITS or id_bits != _G1_ID_BITS:
+        raise VerifyError("g1 chip scalar widths not the production widths")
+    if not 2 <= k <= _G1_MAX_K:
+        raise VerifyError("g1 chip k out of range")
+    if [int(v) for v in entry.get("block_counts", [])] != [k]:
+        raise VerifyError("g1 descriptor inconsistent")
+    air = _g1_air(k)
+    publics = [int(v) for v in entry["proof"]["public_values"]]
+    try:
+        air.check_publics(publics)
+    except ValueError as e:
+        raise VerifyError(f"g1 publics: {e}") from None
+    stark_verify(air, entry["proof"], publics, config, challenger)
+
+    if sha_ctx is None:
+        raise VerifyError("g1 gadget requires the SHA-256 table")
+    sha_air, sha_publics = sha_ctx
+    sk = bytes(publics[: air.sk_bytes])
+    id_int = int.from_bytes(bytes(publics[air.sk_bytes : air.c_base]), "big")
+    c_pts = []
+    for j in range(k):
+        base = air.c_base + 2 * NLIMBS * j
+        c_pts.append((limbs_to_int(publics[base : base + NLIMBS]),
+                      limbs_to_int(publics[base + NLIMBS : base + 2 * NLIMBS])))
+
+    # C_j binding via the initial-commitment preimage
+    if not 1 <= init_ref <= sha_air.num_messages:
+        raise VerifyError("g1 gadget lacks an initial-commitment binding")
+    try:
+        init_msg = message_from_publics(sha_air, sha_publics, init_ref - 1)
+    except ValueError as e:
+        raise VerifyError(f"g1 init preimage: {e}") from None
+    if _parse_init_commitment(init_msg, c_pts) is None:
+        raise VerifyError("g1 C_j not bound to the committed initial-commitment preimage")
+
+    # the initial-commitment digest must itself be anchored in the committed
+    # stream (the guest asserts it is among the verification hashes before
+    # any curve math), or init_ref could name an unanchored table entry
+    try:
+        frames = _stream_frames(stream)
+    except ValueError as e:
+        raise VerifyError(f"malformed stream: {e}") from None
+    hashes = []
+    for fr in frames[:-1]:  # last frame = perpetrator pubkey
+        try:
+            hashes.append(bytes.fromhex(fr.decode("ascii")))
+        except (UnicodeDecodeError, ValueError):
+            raise VerifyError("malformed verification-hash frame") from None
+    init_digest = hashlib.sha256(init_msg).digest()
+    if init_digest not in hashes:
+        raise VerifyError("g1 initial-commitment digest not among the committed hashes")
+
+    if auth:
+        if not 1 <= seed_ref <= sha_air.num_messages:
+            raise VerifyError("g1 gadget lacks a seed-exchange binding (auth)")
+        try:
+            seed_msg = message_from_publics(sha_air, sha_publics, seed_ref - 1)
+        except ValueError as e:
+            raise VerifyError(f"g1 seed preimage: {e}") from None
+        if len(seed_msg) != 96:
+            raise VerifyError("g1 seed preimage has the wrong shape")
+        if seed_msg[32:64] != sk:
+            raise VerifyError("g1 secret not bound to the seed-exchange preimage")
+        if init_digest != seed_msg[0:32]:
+            raise VerifyError("g1 hash chain broken (init digest vs seed preimage)")
+        # id = sorted-index+1 of dst_base_hash among the committed hashes
+        try:
+            idx = sorted(hashes).index(seed_msg[64:96])
+        except ValueError:
+            raise VerifyError("dst_base_hash not among committed hashes") from None
+        if id_int != idx + 1:
+            raise VerifyError("g1 id not bound to the sorted-hash index")
+    elif not 1 <= id_int <= len(hashes):
+        # no_auth: the secret has no hash anchor in the reference's data
+        # flow; the id must still be a sorted-index + 1 into the committee
+        raise VerifyError("g1 id outside the committed committee range")
+
+    out_a, out_b = air.out_points(publics)
+    if out_a == out_b:
+        raise VerifyError("g1 relation shows a VALID share — no slashable fault to prove")
 
 
 def _verify_g1mul_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfig,

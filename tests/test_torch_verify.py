@@ -1,8 +1,8 @@
 """Port parity for the verifier on inputs that prove in seconds: a
 container whose curve relations were omitted (``DVT_G1=0``), a
-Fibonacci STARK with each part of its proof tampered in turn, the gadget
-kinds the port cannot verify yet, and the CLI ``verify`` against the JAX
-CLI.  The curve containers' acceptance and rejection tests live in
+Fibonacci STARK with each part of its proof tampered in turn, a gadget
+renamed to another kind, and the CLI ``verify`` against the JAX CLI.  The
+curve containers' acceptance and rejection tests live in
 ``test_torch_pipeline.py``, beside the fixture that proves them once."""
 
 import copy
@@ -58,25 +58,28 @@ def test_wrong_circuit_name_rejected(g1_omitted):
         jax_pipeline.verify_proof(g1_omitted, "finalization")
 
 
-#: what the verifier says of a SHA-256 gadget renamed to each kind: the
-#: legacy wide-G1 table is refused by name; a ChaCha20 table (ported) is held
-#: to the ChaCha20 gadget's own checks, which a SHA-256 descriptor fails
+#: what both verifiers say of a SHA-256 gadget renamed to each kind: each
+#: kind's own checks refuse a SHA-256 descriptor, which carries no extras
+#: (the ChaCha20 gadget's, and the legacy wide-G1 gadget's)
 _RENAMED_GADGET_ERRORS = {"chacha20": "chacha extras malformed",
-                          "g1": "the 'g1' gadget's table is not ported"}
+                          "g1": "g1 extras malformed"}
 
 
 @pytest.mark.parametrize("kind", ["chacha20", "g1"])
-def test_unported_gadget_kinds_rejected(g1_omitted, kind, monkeypatch):
-    """A gadget renamed to another kind is rejected, never skipped: by name
-    for the legacy wide-G1 kind (not ported), by the ChaCha20 gadget's checks
-    for ``chacha20``.  The tables' STARKs are stubbed out so that the
-    renamed gadget reaches the dispatch (its new kind id no longer matches
-    the stream digest)."""
+def test_renamed_gadget_kinds_rejected(g1_omitted, kind, monkeypatch):
+    """A gadget renamed to another kind is rejected, never skipped, by that
+    kind's own checks, with the JAX verifier's message.  The tables' STARKs
+    are stubbed out in both packages so that the renamed gadget reaches the
+    dispatch (its new kind id no longer matches the stream digest)."""
     monkeypatch.setattr(pipeline, "stark_verify", lambda *args: True)
+    monkeypatch.setattr(jax_pipeline, "stark_verify", lambda *args: True)
     bad = copy.deepcopy(g1_omitted)
     bad["gadgets"][0]["kind"] = kind
-    with pytest.raises(VerifyError, match=_RENAMED_GADGET_ERRORS[kind]):
+    with pytest.raises(VerifyError) as ours:
         verify_proof(bad, device="cpu")
+    with pytest.raises(jax_pipeline.VerifyError) as theirs:
+        jax_pipeline.verify_proof(bad)
+    assert str(ours.value) == str(theirs.value) == _RENAMED_GADGET_ERRORS[kind]
 
 
 @pytest.fixture(scope="module")
