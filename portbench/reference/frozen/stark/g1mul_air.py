@@ -1,0 +1,1277 @@
+"""Tall/narrow BLS12-381 G1 multi-chain scalar-mul chip.
+
+Proves, inside one BabyBear STARK table, a batch of independent G1 scalar
+multiplications  R_c = s_c · P_c  (Jacobian double + conditional mixed-add
+ladder — the same dbl-2009-l / madd-2007-bl gadget program as the wide
+``g1_air.G1PolyAir``, reference verification.rs:107-118 / dkg_math.rs:160-248),
+re-laid-out for proof size: one curve operation spans SEVEN sub-rows of
+3 MUL + 1 RED bigfield gadgets each, so the committed width drops from
+26,477 columns to ~4.3k and each FRI query opens ~6× less data.
+Everything the DKG circuits need beyond plain
+scalar-muls — Feldman/Horner evaluation, ``agg_coefficients`` column sums,
+Lagrange-at-0 recombination (verification.rs:262-331) — reduces to chains
+of THIS statement plus host-side affine additions and scalar arithmetic
+that the VERIFIER recomputes from public values, so this one chip closes
+the curve-math trust gap for bad-share, finalization and bad-partial-key.
+
+Layout (see ``_WIRING`` for the single-source wiring tables):
+
+  * 8 crumb-committed value banks (195 cols each): 3 mul outputs r, 3 mul
+    quotients q, 1 red output, 1 inverse witness (HINV on L6 / zinv on N0);
+  * 8 limb-committed copy/state banks (39 cols each): range-check-free
+    because each is equality-constrained to an already-range-checked value
+    (CP0..CP2 double as the (X, Y, Z) accumulator state on L0/N0 rows);
+  * 3×76 mul-carry, 1×39 red-carry + red-q crumb columns;
+  * bit / inf / scalar-byte-accumulator control columns.
+
+Per-chain schedule: bits_c × [L0..L6] ladder ops, then [N0, N1] normalize.
+Operands enter as PUBLIC VALUES selected by per-chain preprocessed flags
+(no committed operand columns); scalars are bound byte-wise to publics by
+per-(chain, byte) preprocessed flags on the byte-final L6 rows; results are
+bound to publics on the N1 rows.  Gadget identities are emitted as
+transition constraints gated on the TARGET row's phase flag (via
+``preprocessed_next``), so a row's gadgets may read the previous row's
+values for free; dataflow spanning ≥2 rows goes through the copy banks.
+
+Exceptional cases match the wide chip: the point at infinity is handled
+branchlessly via the ``inf`` flag, and a mixed-add x-collision is made
+UNPROVABLE by the H·H⁻¹ = 1 guard (ValueError at witness time).
+
+Copied from ``dvt_circuits_tpu/stark/g1mul_air.py``; ``eval_tensor``, the
+prover's path, is ported to int64 PyTorch ops (the verifier replays the
+scalar ``eval`` at ζ).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..field.babybear import P as P_BB
+from ..hostcrypto.bls12_381 import P as P_INT
+from .air import Air
+from . import bigfield as bf
+from .bigfield import (
+    MUL_CARRIES,
+    MUL_CARRY_CRUMBS,
+    MUL_CARRY_OFFSET,
+    MUL_OUT,
+    NLIMBS,
+    RED_CARRIES,
+    RED_CARRY_CRUMBS,
+    RED_CARRY_OFFSET,
+    RED_OUT,
+    RED_Q_CRUMBS,
+    VALUE_CRUMBS,
+)
+
+# -- value banks -------------------------------------------------------------
+NUM_MULS = 3
+NUM_REDS = 1
+M0R, M1R, M2R = 0, 1, 2  # mul outputs (crumbs)
+M0Q, M1Q, M2Q = 3, 4, 5  # mul quotients (crumbs)
+RR = 6  # red output (crumbs)
+INVV = 7  # inverse witness (crumbs)
+NCRUMB_BANKS = 8
+CP0, CP1, CP2, CP3, CP4, CP5, CP6, CP7 = range(8, 16)  # copy/state (limbs)
+NSLOTS = 16
+
+# -- column regions ----------------------------------------------------------
+CRUMB0 = 0
+COPY0 = NCRUMB_BANKS * VALUE_CRUMBS  # 1560
+MC0 = COPY0 + 8 * NLIMBS  # 1872
+RQ0 = MC0 + NUM_MULS * MUL_CARRIES * MUL_CARRY_CRUMBS  # + 2280
+RC0 = RQ0 + RED_Q_CRUMBS
+B_COL = RC0 + RED_CARRIES * RED_CARRY_CRUMBS
+INF_COL = B_COL + 1
+S_COL = B_COL + 2
+WIDTH = B_COL + 3
+
+# -- phases ------------------------------------------------------------------
+PHASES = ("L0", "L1", "L2", "L3", "L4", "L5", "L6", "N0", "N1")
+PH = {p: i for i, p in enumerate(PHASES)}
+PF_CHAINSTART = 9
+PF_BYTESTART = 10
+PF_SCONT = 11
+PF_FIXED = 12  # then C chain flags, then Σ bytes byte-bind flags
+
+OPS_PER_BIT = 7  # ladder sub-rows
+NORM_ROWS = 2
+
+GX_INT, GY_INT = None, None  # filled lazily (import-order safety)
+
+
+# -- wiring forms ------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class T:
+    """One term of a wiring form: ``coeff ·  value``.
+
+    kind: "slot" (value bank ``idx`` at row offset ``off``: 1 = the gadget's
+    own row, 0 = the previous row), "opx"/"opy" (the active chain's public
+    operand coordinate — expands to Σ_c chainflag_c·publics)."""
+
+    kind: str
+    idx: int = 0
+    off: int = 1
+    coeff: int = 1
+
+
+@dataclass(frozen=True)
+class MF:
+    """Σ terms + const, evaluated limb-wise (cf. bigfield.Form)."""
+
+    terms: Tuple[T, ...] = ()
+    const: int = 0
+
+    @property
+    def magnitude(self) -> int:
+        m = sum(abs(t.coeff) for t in self.terms)
+        return m + (1 if self.const else 0)
+
+    def const_limbs(self, n: int) -> List[int]:
+        return bf.int_to_limbs(self.const, n)
+
+
+def S(idx: int, off: int = 1, coeff: int = 1) -> T:
+    return T("slot", idx, off, coeff)
+
+
+_P = P_INT
+
+#: ladder mul wiring: phase → [(out_bank, MF_a, MF_b)] (≤3 per phase).
+#: Value names per op (dbl-2009-l then madd-2007-bl, cf. g1_air.py):
+#:   L0: A=X², B=Y², YZ=Y·Z          red dZ3=2YZ
+#:   L1: C=B², M=X·B, A2=A²          red dX3=9A2−8M
+#:   L2: P1=A(4M−dX3+p), Z1Z1=dZ3², T1=OPY·dZ3    red dY3=3P1−8C
+#:   L3: U2=OPX·Z1Z1, S2=T1·Z1Z1, HH=H² (H=U2−dX3+p)   red rr=2(S2−dY3)
+#:   L4: JH=H·HH, R2=rr², V=dX3·4HH  red mX3=R2−4JH−2V
+#:   L5: P2=rr(V−mX3+p), P3=dY3·JH, ZH=dZ3·H      red mY3=P2−8P3
+#:   L6: HI=H·HINV (x-collision guard)            red mZ3=2ZH
+#:   N0: ZI=Z·zinv, Z2=zinv², OX=X·Z2
+#:   N1: Z3=Z2·zinv, OY=Y·Z3
+#: Copy plan: CP3=A@L1, rr@L4, mX3@L5..L6; CP4=dZ3@L1..L6; CP5=dX3@L2..L6;
+#: CP6=dY3@L3..L6; CP7=U2@L4..L5, mY3@L6; CP0..2=state@L0/N0, Y again @N1.
+
+_H_AT = {  # H = U2 − dX3 + p, expressed at each row that needs it
+    "L3": MF((S(M0R, 1), S(CP5, 0, -1)), _P),  # U2 local, dX3 via CP5@L2
+    "L4": MF((S(M0R, 0), S(CP5, 0, -1)), _P),  # U2@L3, dX3 via CP5@L3
+    "L5": MF((S(CP7, 0), S(CP5, 0, -1)), _P),  # copies @L4
+    "L6": MF((S(CP7, 0), S(CP5, 0, -1)), _P),  # copies @L5
+}
+
+MUL_WIRING: Dict[str, List[Tuple[int, MF, MF]]] = {
+    "L0": [
+        (M0R, MF((S(CP0),)), MF((S(CP0),))),  # A = X²
+        (M1R, MF((S(CP1),)), MF((S(CP1),))),  # B = Y²
+        (M2R, MF((S(CP1),)), MF((S(CP2),))),  # YZ = Y·Z
+    ],
+    "L1": [
+        (M0R, MF((S(M1R, 0),)), MF((S(M1R, 0),))),  # C = B²
+        (M1R, MF((S(CP0, 0),)), MF((S(M1R, 0),))),  # M = X·B
+        (M2R, MF((S(M0R, 0),)), MF((S(M0R, 0),))),  # A2 = A²
+    ],
+    "L2": [
+        # P1 = A·(4M − dX3 + p)
+        (M0R, MF((S(CP3, 0),)), MF((S(M1R, 0, 4), S(RR, 0, -1)), _P)),
+        (M1R, MF((S(CP4, 0),)), MF((S(CP4, 0),))),  # Z1Z1 = dZ3²
+        (M2R, MF((T("opy"),)), MF((S(CP4, 0),))),  # T1 = OPY·dZ3
+    ],
+    "L3": [
+        (M0R, MF((T("opx"),)), MF((S(M1R, 0),))),  # U2 = OPX·Z1Z1
+        (M1R, MF((S(M2R, 0),)), MF((S(M1R, 0),))),  # S2 = T1·Z1Z1
+        (M2R, _H_AT["L3"], _H_AT["L3"]),  # HH = H²
+    ],
+    "L4": [
+        (M0R, _H_AT["L4"], MF((S(M2R, 0),))),  # JH = H·HH
+        (M1R, MF((S(RR, 0),)), MF((S(RR, 0),))),  # R2 = rr²
+        (M2R, MF((S(CP5, 0),)), MF((S(M2R, 0, 4),))),  # V = dX3·4HH
+    ],
+    "L5": [
+        # P2 = rr·(V − mX3 + p)
+        (M0R, MF((S(CP3, 0),)), MF((S(M2R, 0), S(RR, 0, -1)), _P)),
+        (M1R, MF((S(CP6, 0),)), MF((S(M0R, 0),))),  # P3 = dY3·JH
+        (M2R, MF((S(CP4, 0),)), _H_AT["L5"]),  # ZH = dZ3·H
+    ],
+    "L6": [
+        (M0R, _H_AT["L6"], MF((S(INVV, 1),))),  # HI = H·HINV
+    ],
+    "N0": [
+        (M0R, MF((S(CP2),)), MF((S(INVV),))),  # ZI = Z·zinv
+        (M1R, MF((S(INVV),)), MF((S(INVV),))),  # Z2 = zinv²
+        (M2R, MF((S(CP0),)), MF((S(M1R, 1),))),  # OX = X·Z2
+    ],
+    "N1": [
+        (M0R, MF((S(M1R, 0),)), MF((S(INVV, 0),))),  # Z3 = Z2·zinv
+        (M1R, MF((S(CP1),)), MF((S(M0R, 1),))),  # OY = Y·Z3
+    ],
+}
+
+RED_WIRING: Dict[str, Tuple[MF, ...]] = {
+    "L0": (MF((S(M2R, 1, 2),)),),  # dZ3 = 2·YZ
+    "L1": (MF((S(M2R, 1, 9), S(M1R, 1, -8)), 8 * _P),),  # dX3 = 9A2 − 8M
+    "L2": (MF((S(M0R, 1, 3), S(M0R, 0, -8)), 8 * _P),),  # dY3 = 3P1 − 8C
+    "L3": (MF((S(M1R, 1, 2), S(RR, 0, -2)), 2 * _P),),  # rr = 2(S2 − dY3)
+    "L4": (MF((S(M1R, 1), S(M0R, 1, -4), S(M2R, 1, -2)), 6 * _P),),  # mX3
+    "L5": (MF((S(M0R, 1), S(M1R, 1, -8)), 8 * _P),),  # mY3 = P2 − 8P3
+    "L6": (MF((S(M2R, 0, 2),)),),  # mZ3 = 2·ZH
+}
+
+#: copy wiring: phase → [(cp_slot, src_term)] — next.CP_slot = src (at the
+#: source row = the copy row's predecessor, off=0; or same row off=1).
+COPY_WIRING: Dict[str, List[Tuple[int, T]]] = {
+    "L1": [(CP3, S(M0R, 0)), (CP4, S(RR, 0))],  # A, dZ3
+    "L2": [(CP4, S(CP4, 0)), (CP5, S(RR, 0))],  # dZ3, dX3
+    "L3": [(CP4, S(CP4, 0)), (CP5, S(CP5, 0)), (CP6, S(RR, 0))],  # +dY3
+    "L4": [
+        (CP4, S(CP4, 0)),
+        (CP5, S(CP5, 0)),
+        (CP6, S(CP6, 0)),
+        (CP3, S(RR, 0)),  # rr
+        (CP7, S(M0R, 0)),  # U2
+    ],
+    "L5": [
+        (CP4, S(CP4, 0)),
+        (CP5, S(CP5, 0)),
+        (CP6, S(CP6, 0)),
+        (CP7, S(CP7, 0)),
+        (CP3, S(RR, 0)),  # mX3
+    ],
+    "L6": [
+        (CP4, S(CP4, 0)),
+        (CP5, S(CP5, 0)),
+        (CP6, S(CP6, 0)),
+        (CP3, S(CP3, 0)),  # mX3
+        (CP7, S(RR, 0)),  # mY3
+    ],
+    "N1": [(CP1, S(CP1, 0))],  # Y for OY
+}
+
+for _p, _muls in MUL_WIRING.items():
+    for _bank, _fa, _fb in _muls:
+        assert _fa.magnitude * _fb.magnitude <= bf.MAX_MAMB, (_p, _bank)
+for _p, _reds in RED_WIRING.items():
+    for _f in _reds:
+        assert _f.magnitude <= bf.RED_MAX_M, _p
+        assert _f.const % P_INT == 0, _p
+# L0 gadgets must not reference the previous row (wrap-around safety: the
+# first trace row's identities are enforced on the (N−1, 0) wrapped pair)
+for _bank, _fa, _fb in MUL_WIRING["L0"]:
+    assert all(t.off == 1 for t in (*_fa.terms, *_fb.terms))
+for _f in RED_WIRING["L0"]:
+    assert all(t.off == 1 for t in _f.terms)
+
+
+def _carry_offsets(n_out: int, offset: int) -> List[int]:
+    """Constant of each identity column k: the carry offsets, −offset from
+    carry k − 1 and +2^10·offset from carry k, mod p."""
+    out = []
+    for kk in range(n_out):
+        kv = -offset if kk >= 1 else 0
+        if kk <= n_out - 2:
+            kv += (1 << bf.LIMB_BITS) * offset
+        out.append(kv % P_BB)
+    return out
+
+
+_KMUL = _carry_offsets(MUL_OUT, MUL_CARRY_OFFSET)
+_KRED = _carry_offsets(RED_OUT, RED_CARRY_OFFSET)
+
+
+def _g1_gen():
+    from ..hostcrypto.bls12_381 import G1_GEN
+
+    return G1_GEN
+
+
+class G1MulAir(Air):
+    """Multi-chain G1 scalar-mul chip (see module docstring).
+
+    ``chain_bits``: per-chain scalar bit widths (each a multiple of 8).
+    Publics, per chain c: scalar bytes (big-endian, bits_c/8), operand
+    affine x, y (39 limbs each), result inf flag + affine x, y.
+    """
+
+    width = WIDTH
+
+    def __init__(self, chain_bits: Tuple[int, ...]):
+        chain_bits = tuple(int(b) for b in chain_bits)
+        assert chain_bits and all(b >= 8 and b % 8 == 0 for b in chain_bits)
+        self.chain_bits = chain_bits
+        self.num_chains = len(chain_bits)
+        total_bytes = sum(b // 8 for b in chain_bits)
+        self.preprocessed_width = PF_FIXED + self.num_chains + total_bytes
+        # publics layout
+        self.pub_base = []
+        off = 0
+        for b in chain_bits:
+            self.pub_base.append(off)
+            off += b // 8 + 2 * NLIMBS + 1 + 2 * NLIMBS
+        self.num_public_values = off
+        self.rows = self._schedule()
+        self.min_rows = len(self.rows)
+        self.log_rows = max(4, (self.min_rows - 1).bit_length())
+
+    def cache_key(self):
+        return (type(self).__module__, type(self).__qualname__, self.chain_bits)
+
+    # publics helpers -------------------------------------------------------
+
+    def scalar_bytes_of(self, publics, c: int) -> bytes:
+        b0 = self.pub_base[c]
+        return bytes(int(v) for v in publics[b0 : b0 + self.chain_bits[c] // 8])
+
+    def operand_of(self, publics, c: int) -> Tuple[int, int]:
+        b0 = self.pub_base[c] + self.chain_bits[c] // 8
+        return (
+            bf.limbs_to_int(publics[b0 : b0 + NLIMBS]),
+            bf.limbs_to_int(publics[b0 + NLIMBS : b0 + 2 * NLIMBS]),
+        )
+
+    def result_of(self, publics, c: int) -> Tuple[int, int, int]:
+        b0 = self.pub_base[c] + self.chain_bits[c] // 8 + 2 * NLIMBS
+        return (
+            int(publics[b0]),
+            bf.limbs_to_int(publics[b0 + 1 : b0 + 1 + NLIMBS]),
+            bf.limbs_to_int(publics[b0 + 1 + NLIMBS : b0 + 1 + 2 * NLIMBS]),
+        )
+
+    def check_publics(self, publics: Sequence[int]) -> None:
+        """Range/canonicity checks making limb equality ≡ integer equality.
+        Curve/subgroup membership of operands is the pipeline's binding
+        responsibility (SHA-preimage decompression, prover/pipeline.py)."""
+        if len(publics) != self.num_public_values:
+            raise ValueError("wrong number of public values")
+        for c in range(self.num_chains):
+            b0 = self.pub_base[c]
+            nb = self.chain_bits[c] // 8
+            for i in range(b0, b0 + nb):
+                if not 0 <= int(publics[i]) < 256:
+                    raise ValueError("scalar byte out of range")
+            lim0 = b0 + nb
+            inf_i = lim0 + 2 * NLIMBS
+            for i in range(lim0, b0 + nb + 4 * NLIMBS + 1):
+                if i == inf_i:
+                    if int(publics[i]) not in (0, 1):
+                        raise ValueError("infinity flag not boolean")
+                elif not 0 <= int(publics[i]) < (1 << bf.LIMB_BITS):
+                    raise ValueError("public limb out of range")
+            ox, oy = self.operand_of(publics, c)
+            if ox >= P_INT or oy >= P_INT:
+                raise ValueError("operand coordinate not canonical")
+            _, rx, ry = self.result_of(publics, c)
+            if rx >= P_INT or ry >= P_INT:
+                raise ValueError("result coordinate not canonical")
+
+    # -- schedule -----------------------------------------------------------
+
+    def _schedule(self) -> List[dict]:
+        rows: List[dict] = []
+        for c, bits in enumerate(self.chain_bits):
+            for i in range(bits):
+                for s in range(OPS_PER_BIT):
+                    rows.append({"ph": f"L{s}", "c": c, "i": i})
+            rows.append({"ph": "N0", "c": c})
+            rows.append({"ph": "N1", "c": c})
+        return rows
+
+    def preprocessed_trace(self, n: int):
+        assert n >= self.min_rows
+        pre = np.zeros((n, self.preprocessed_width), dtype=np.uint32)
+        byte_off = [0]
+        for b in self.chain_bits:
+            byte_off.append(byte_off[-1] + b // 8)
+        for r, row in enumerate(self.rows):
+            ph, c = row["ph"], row["c"]
+            pre[r, PH[ph]] = 1
+            pre[r, PF_FIXED + c] = 1
+            if ph == "L0":
+                i = row["i"]
+                if i == 0:
+                    pre[r, PF_CHAINSTART] = 1
+                if i % 8 == 0:
+                    pre[r, PF_BYTESTART] = 1
+            elif ph == "L6":
+                i = row["i"]
+                if i % 8 != 7:
+                    pre[r, PF_SCONT] = 1
+                else:
+                    pre[
+                        r,
+                        PF_FIXED + self.num_chains + byte_off[c] + i // 8,
+                    ] = 1
+        return pre
+
+    # -- witness generation -------------------------------------------------
+
+    def generate_trace(self, chains: Sequence[Tuple[bytes, Tuple[int, int]]]):
+        """chains: per chain (scalar big-endian bytes, operand affine point).
+
+        Raises ValueError on the documented unprovable x-collision
+        pathology (adding ±P to itself mid-ladder)."""
+        assert len(chains) == self.num_chains
+        n = 1 << self.log_rows
+        vals = np.zeros((n, NSLOTS), dtype=object)
+        vals[:, :] = 0
+        bits_col = np.zeros(n, dtype=np.uint32)
+        inf_col = np.zeros(n, dtype=np.uint32)
+        s_col = np.zeros(n, dtype=np.uint32)
+
+        publics: List[int] = []
+        h_rows: List[Tuple[int, int]] = []  # (L6 row, H) for batch inversion
+        r = 0
+        for c, (sk_bytes, point) in enumerate(chains):
+            bits = self.chain_bits[c]
+            assert len(sk_bytes) == bits // 8
+            px, py = int(point[0]), int(point[1])
+            assert 0 <= px < P_INT and 0 <= py < P_INT
+            sk_int = int.from_bytes(sk_bytes, "big")
+            acc = (0, 1, 0)
+            inf = 1
+            s_run = 0
+            for i in range(bits):
+                b = (sk_int >> (bits - 1 - i)) & 1
+                s_run = b if i % 8 == 0 else 2 * s_run + b
+                env = self._exec_ladder(acc, inf, (px, py), b)
+                # place values into the 7 sub-rows
+                self._place_ladder(vals, r, acc, env)
+                h_rows.append((r + 6, env["H"]))
+                for s in range(OPS_PER_BIT):
+                    bits_col[r + s] = b
+                    inf_col[r + s] = inf
+                    s_col[r + s] = s_run
+                if b:
+                    if inf:
+                        acc, inf = (px, py, 1), 0
+                    else:
+                        acc, inf = (env["mX3"], env["mY3"], env["mZ3"]), 0
+                else:
+                    acc = (env["dX3"], env["dY3"], env["dZ3"])
+                r += OPS_PER_BIT
+            # normalize
+            if inf:
+                zinv = 0
+                ox = oy = 0
+            else:
+                zinv = pow(acc[2], P_INT - 2, P_INT)
+                z2 = zinv * zinv % P_INT
+                ox = acc[0] * z2 % P_INT
+                oy = acc[1] * (z2 * zinv % P_INT) % P_INT
+            env_n = {
+                "ZI": acc[2] * zinv % P_INT,
+                "Z2": zinv * zinv % P_INT,
+                "OX": acc[0] * (zinv * zinv % P_INT) % P_INT,
+                "Z3": (zinv * zinv % P_INT) * zinv % P_INT,
+                "OY": oy,
+                "zinv": zinv,
+            }
+            vals[r, CP0], vals[r, CP1], vals[r, CP2] = acc
+            vals[r, INVV] = zinv
+            vals[r, M0R] = env_n["ZI"]
+            vals[r, M1R] = env_n["Z2"]
+            vals[r, M2R] = env_n["OX"]
+            vals[r + 1, CP1] = acc[1]
+            vals[r + 1, M0R] = env_n["Z3"]
+            vals[r + 1, M1R] = env_n["OY"]
+            inf_col[r] = inf
+            inf_col[r + 1] = inf
+            r += NORM_ROWS
+
+            publics += list(sk_bytes)
+            publics += bf.int_to_limbs(px) + bf.int_to_limbs(py)
+            publics += [int(inf)] + bf.int_to_limbs(ox) + bf.int_to_limbs(oy)
+
+        assert r == self.min_rows
+        assert len(publics) == self.num_public_values
+
+        # batch inversion of every ladder step's H (Montgomery's trick:
+        # ONE modular pow for all bits; zeros map to inverse 0)
+        nz = [(row, h) for row, h in h_rows if h]
+        if nz:
+            prefix = []
+            run = 1
+            for _, h in nz:
+                prefix.append(run)
+                run = run * h % P_INT
+            inv_run = pow(run, P_INT - 2, P_INT)
+            for i in range(len(nz) - 1, -1, -1):
+                row, h = nz[i]
+                hinv = inv_run * prefix[i] % P_INT
+                inv_run = inv_run * h % P_INT
+                vals[row, INVV] = hinv
+                vals[row, M0R] = h * hinv % P_INT
+        trace = self._build_trace(vals, bits_col, inf_col, s_col, publics)
+        return trace, publics
+
+    def _exec_ladder(self, acc, inf, op, b) -> Dict[str, int]:
+        """One ladder op on Python ints (module-docstring value names)."""
+        X, Y, Z = acc
+        px, py = op
+        p = P_INT
+        e: Dict[str, int] = {}
+        e["A"] = X * X % p
+        e["B"] = Y * Y % p
+        e["YZ"] = Y * Z % p
+        e["dZ3"] = 2 * e["YZ"] % p
+        e["C"] = e["B"] * e["B"] % p
+        e["M"] = X * e["B"] % p
+        e["A2"] = e["A"] * e["A"] % p
+        e["dX3"] = (9 * e["A2"] - 8 * e["M"]) % p
+        e["P1"] = e["A"] * ((4 * e["M"] - e["dX3"]) % p) % p
+        e["Z1Z1"] = e["dZ3"] * e["dZ3"] % p
+        e["T1"] = py * e["dZ3"] % p
+        e["dY3"] = (3 * e["P1"] - 8 * e["C"]) % p
+        e["U2"] = px * e["Z1Z1"] % p
+        e["S2"] = e["T1"] * e["Z1Z1"] % p
+        e["H"] = (e["U2"] - e["dX3"]) % p
+        e["HH"] = e["H"] * e["H"] % p
+        e["rr"] = 2 * (e["S2"] - e["dY3"]) % p
+        e["JH"] = e["H"] * e["HH"] % p
+        e["R2"] = e["rr"] * e["rr"] % p
+        e["V"] = e["dX3"] * (4 * e["HH"] % p) % p
+        e["mX3"] = (e["R2"] - 4 * e["JH"] - 2 * e["V"]) % p
+        e["P2"] = e["rr"] * ((e["V"] - e["mX3"]) % p) % p
+        e["P3"] = e["dY3"] * e["JH"] % p
+        e["mY3"] = (e["P2"] - 8 * e["P3"]) % p
+        e["ZH"] = e["dZ3"] * e["H"] % p
+        e["mZ3"] = 2 * e["ZH"] % p
+        if b and not inf and e["H"] == 0:
+            raise ValueError(
+                "G1 chip: x-collision in mixed addition (adding ±P to "
+                "itself) — pathological input is unprovable by design"
+            )
+        # HINV/HI are filled in bulk after the ladder (generate_trace's
+        # Montgomery batch inversion: one pow for ALL bits instead of one
+        # per bit — the pow calls were ~10% of finalization witness time)
+        return e
+
+    def _place_ladder(self, vals, r, acc, e) -> None:
+        """Scatter one op's named values into rows r..r+6 per the wiring."""
+        X, Y, Z = acc
+        v = vals
+        v[r, CP0], v[r, CP1], v[r, CP2] = X, Y, Z
+        v[r, M0R], v[r, M1R], v[r, M2R] = e["A"], e["B"], e["YZ"]
+        v[r, RR] = e["dZ3"]
+        v[r + 1, M0R], v[r + 1, M1R], v[r + 1, M2R] = e["C"], e["M"], e["A2"]
+        v[r + 1, RR] = e["dX3"]
+        v[r + 1, CP3], v[r + 1, CP4] = e["A"], e["dZ3"]
+        v[r + 2, M0R], v[r + 2, M1R], v[r + 2, M2R] = (
+            e["P1"],
+            e["Z1Z1"],
+            e["T1"],
+        )
+        v[r + 2, RR] = e["dY3"]
+        v[r + 2, CP4], v[r + 2, CP5] = e["dZ3"], e["dX3"]
+        v[r + 3, M0R], v[r + 3, M1R], v[r + 3, M2R] = e["U2"], e["S2"], e["HH"]
+        v[r + 3, RR] = e["rr"]
+        v[r + 3, CP4], v[r + 3, CP5], v[r + 3, CP6] = (
+            e["dZ3"],
+            e["dX3"],
+            e["dY3"],
+        )
+        v[r + 4, M0R], v[r + 4, M1R], v[r + 4, M2R] = e["JH"], e["R2"], e["V"]
+        v[r + 4, RR] = e["mX3"]
+        v[r + 4, CP4], v[r + 4, CP5], v[r + 4, CP6] = (
+            e["dZ3"],
+            e["dX3"],
+            e["dY3"],
+        )
+        v[r + 4, CP3], v[r + 4, CP7] = e["rr"], e["U2"]
+        v[r + 5, M0R], v[r + 5, M1R], v[r + 5, M2R] = e["P2"], e["P3"], e["ZH"]
+        v[r + 5, RR] = e["mY3"]
+        v[r + 5, CP4], v[r + 5, CP5], v[r + 5, CP6] = (
+            e["dZ3"],
+            e["dX3"],
+            e["dY3"],
+        )
+        v[r + 5, CP7], v[r + 5, CP3] = e["U2"], e["mX3"]
+        # v[r + 6, M0R] (HI) and v[r + 6, INVV] (HINV) are batch-filled
+        # by generate_trace after the ladder (one batched inversion)
+        v[r + 6, RR] = e["mZ3"]
+        v[r + 6, CP4], v[r + 6, CP5], v[r + 6, CP6] = (
+            e["dZ3"],
+            e["dX3"],
+            e["dY3"],
+        )
+        v[r + 6, CP3], v[r + 6, CP7] = e["mX3"], e["mY3"]
+
+    # -- batched witness assembly ------------------------------------------
+
+    def _phase_of(self) -> List[str]:
+        n = 1 << self.log_rows
+        return [row["ph"] for row in self.rows] + ["pad"] * (n - self.min_rows)
+
+    def _build_trace(self, vals, bits_col, inf_col, s_col, publics):
+        n = 1 << self.log_rows
+        phase_of = self._phase_of()
+        phase_rows = {
+            p: np.array(
+                [i for i, pp in enumerate(phase_of) if pp == p], dtype=int
+            )
+            for p in PHASES
+        }
+        # limb matrix for every slot
+        L = np.zeros((n, NSLOTS, NLIMBS), dtype=np.int64)
+        for s in range(NSLOTS):
+            L[:, s] = bf.ints_to_limb_rows([vals[i, s] for i in range(n)])
+
+        # per-chain operand limbs per row (for raw form reconstruction)
+        op_limbs = {"opx": np.zeros((n, NLIMBS), np.int64), "opy": np.zeros((n, NLIMBS), np.int64)}
+        for r, row in enumerate(self.rows):
+            c = row["c"]
+            b0 = self.pub_base[c] + self.chain_bits[c] // 8
+            op_limbs["opx"][r] = publics[b0 : b0 + NLIMBS]
+            op_limbs["opy"][r] = publics[b0 + NLIMBS : b0 + 2 * NLIMBS]
+
+        def term_rows(t: T, rows_idx):
+            src = rows_idx + (t.off - 1)  # off=1 → same row, off=0 → prev
+            if t.kind == "slot":
+                return L[src % n, t.idx]
+            return op_limbs[t.kind][src % n]
+
+        def term_ints(t: T, rows_idx):
+            src = (rows_idx + (t.off - 1)) % n
+            if t.kind == "slot":
+                return [int(vals[i, t.idx]) for i in src]
+            return [bf.limbs_to_int(op_limbs[t.kind][i]) for i in src]
+
+        def form_raw(f: MF, rows_idx, nl):
+            out = np.zeros((len(rows_idx), nl), dtype=np.int64)
+            for t in f.terms:
+                out[:, :NLIMBS] += t.coeff * term_rows(t, rows_idx)
+            if f.const:
+                out += np.asarray(f.const_limbs(nl), dtype=np.int64)[None]
+            return out
+
+        def form_ints(f: MF, rows_idx):
+            outs = [f.const] * len(rows_idx)
+            for t in f.terms:
+                for j, v in enumerate(term_ints(t, rows_idx)):
+                    outs[j] += t.coeff * v
+            return outs
+
+        trace = np.zeros((n, WIDTH), dtype=np.uint32)
+
+        # mul gadgets: batch witness per physical slot
+        for m in range(NUM_MULS):
+            a_ints = [0] * n
+            b_ints = [0] * n
+            a_raw = np.zeros((n, NLIMBS), dtype=np.int64)
+            b_raw = np.zeros((n, NLIMBS), dtype=np.int64)
+            out_bank = [None] * n
+            for p, muls in MUL_WIRING.items():
+                if m >= len(muls):
+                    continue
+                bank, fa, fb = muls[m]
+                rows_idx = phase_rows[p]
+                if not len(rows_idx):
+                    continue
+                for j, i in enumerate(rows_idx):
+                    out_bank[i] = bank
+                av = form_ints(fa, rows_idx)
+                bv = form_ints(fb, rows_idx)
+                for j, i in enumerate(rows_idx):
+                    a_ints[i], b_ints[i] = av[j], bv[j]
+                a_raw[rows_idx] = form_raw(fa, rows_idx, NLIMBS)
+                b_raw[rows_idx] = form_raw(fb, rows_idx, NLIMBS)
+            q_ints, r_ints, carries = bf.mul_witness_rows(
+                a_ints, b_ints, a_raw, b_raw
+            )
+            for i in range(n):
+                if out_bank[i] is not None:
+                    assert r_ints[i] == vals[i, out_bank[i]], (m, i)
+                else:
+                    assert r_ints[i] == 0
+                vals[i, M0Q + m] = q_ints[i]
+            L[:, M0Q + m] = bf.ints_to_limb_rows(q_ints)
+            base = MC0 + m * MUL_CARRIES * MUL_CARRY_CRUMBS
+            trace[:, base : base + MUL_CARRIES * MUL_CARRY_CRUMBS] = (
+                bf.small_to_crumbs(carries, MUL_CARRY_CRUMBS).reshape(n, -1)
+            )
+
+        # red gadget
+        f_ints = [0] * n
+        f_raw = np.zeros((n, RED_OUT), dtype=np.int64)
+        for p, reds in RED_WIRING.items():
+            f = reds[0]
+            rows_idx = phase_rows[p]
+            if not len(rows_idx):
+                continue
+            fv = form_ints(f, rows_idx)
+            for j, i in enumerate(rows_idx):
+                f_ints[i] = fv[j]
+            f_raw[rows_idx] = form_raw(f, rows_idx, RED_OUT)
+        q_small, r_ints, carries = bf.red_witness_rows(f_ints, f_raw)
+        for i in range(n):
+            assert r_ints[i] == vals[i, RR], i
+        trace[:, RQ0 : RQ0 + RED_Q_CRUMBS] = bf.small_to_crumbs(
+            q_small, RED_Q_CRUMBS
+        )
+        trace[:, RC0 : RC0 + RED_CARRIES * RED_CARRY_CRUMBS] = (
+            bf.small_to_crumbs(carries, RED_CARRY_CRUMBS).reshape(n, -1)
+        )
+
+        # crumb banks (recombined value slots 0..7) and copy limbs
+        trace[:, :COPY0] = bf.limbs_to_crumbs(L[:, :NCRUMB_BANKS]).reshape(
+            n, -1
+        )
+        trace[:, COPY0:MC0] = (
+            L[:, NCRUMB_BANKS:NSLOTS].reshape(n, -1).astype(np.uint32)
+        )
+        trace[:, B_COL] = bits_col
+        trace[:, INF_COL] = inf_col
+        trace[:, S_COL] = s_col
+        return trace
+
+    # -- constraint evaluation ---------------------------------------------
+    #
+    # Emission order contract (all three paths — prover tensor, verifier
+    # scalar, verifier vectorized — share the group sequence):
+    #   A  crumb checks (all crumb columns, column order)        deg 4
+    #   B  bit checks [b, inf]                                   deg 2
+    #   C  mul identities (slot-major, k = 0..76)                deg 4
+    #   D  red identity (k = 0..39)                              deg 3
+    #   E  copy constraints (CP3..CP7 then CP1@N1, limb order)   deg 2
+    #   F  selection at L6 → next state + inf transition         deg 4
+    #   G  chain start [CP0, CP1−1, CP2, inf−1]                  deg 2
+    #   H  in-op propagation [b, inf, s const across L1..L6]     deg 2
+    #   I  x-collision guard (HI = 1)                            deg 4
+    #   J  scalar accumulator [bytestart, scont, byte binding]   deg 3
+    #   K  norm bindings [ZI=1, OX, OY, inf→publics]             deg 3
+    #
+    # Identities (C, D) and copies (E) are enforced on the row PAIR ending
+    # at the gadget's own row: gate = preprocessed_next[phase], form off=0
+    # reads the local (previous) row, off=1 the next row.
+
+    def eval_tensor(self, tb):
+        """Tensor path of the prover (``stark/prover.py:TensorBuilder``):
+        groups A–K of the contract above in ``eval``'s α-power order, as int64
+        tensor ops over a block of LDE rows
+        (``dvt_circuits_tpu/stark/g1mul_air.py:eval_tensor``).  A group that
+        the reference concatenates may be asserted here in consecutive parts:
+        the α powers run on.  The mul identities (C) take all 39 × 39 limb
+        products of a row at once, each reduced, and sum them along the
+        anti-diagonals k = i + j: at most 39 reduced terms, below 2^37."""
+        import torch
+
+        P = P_BB
+        X, NXT, PRE, PREN = tb.local, tb.next, tb.pre, tb.pre_next
+        n = X.shape[0]
+        dev = X.device
+
+        def cvec(vals):
+            return torch.tensor([int(v) % P for v in vals], dtype=torch.int64, device=dev)
+
+        def gate(flag, v):
+            """flag (rows,) times v (rows, k) with |v| < p, reduced."""
+            return flag[:, None] * v % P
+
+        def gated_sum(parts):
+            """Σ flag·v over (flag, v) pairs, reduced."""
+            return sum(gate(f, v) for f, v in parts) % P
+
+        ONE_L = cvec([1] + [0] * (NLIMBS - 1))
+        PL = cvec(bf.P_LIMBS)
+        PL40 = cvec(list(bf.P_LIMBS) + [0])
+
+        # A: crumbs, in two runs around the copy banks
+        for cols in (X[:, :COPY0], X[:, MC0:B_COL]):
+            tb.assert_group(cols * (cols - 1) % P * ((cols - 2) * (cols - 3) % P) % P)
+        # B: bits
+        bits2 = X[:, [B_COL, INF_COL]]
+        tb.assert_group(bits2 * (bits2 - 1) % P)
+
+        def recomb(cols, shape, ncr):
+            """Base-4 crumbs, lowest first → values: ≤ 10 products below
+            2^49, summed, then reduced."""
+            pw = torch.tensor([1 << (2 * i) for i in range(ncr)], dtype=torch.int64, device=dev)
+            return ((cols.reshape(n, -1, ncr) * pw).sum(dim=-1) % P).reshape((n,) + shape)
+
+        # value limbs: crumb banks recombined + copy banks raw, for the local
+        # row (off=0 sources) and the next row (off=1 / outputs)
+        per_limb = VALUE_CRUMBS // NLIMBS
+        vals_c = recomb(X[:, :COPY0], (NCRUMB_BANKS, NLIMBS), per_limb)
+        vals_cn = recomb(NXT[:, :COPY0], (NCRUMB_BANKS, NLIMBS), per_limb)
+        copies = X[:, COPY0:MC0].reshape(n, 8, NLIMBS)
+        copies_n = NXT[:, COPY0:MC0].reshape(n, 8, NLIMBS)
+
+        def slot_limbs(idx, off):
+            if idx < NCRUMB_BANKS:
+                return (vals_cn if off else vals_c)[:, idx]
+            return (copies_n if off else copies)[:, idx - NCRUMB_BANKS]
+
+        # only the next row's carries and red quotient enter the identities
+        cm_n = recomb(NXT[:, MC0:RQ0], (NUM_MULS, MUL_CARRIES), MUL_CARRY_CRUMBS)
+        qs_n = recomb(NXT[:, RQ0:RC0], (), RED_Q_CRUMBS)
+        rcm_n = recomb(NXT[:, RC0:B_COL], (RED_CARRIES,), RED_CARRY_CRUMBS)
+
+        # public operand limbs per chain, (chains, 39) each
+        pubs = tb.publics
+        nc = self.num_chains
+        op_base = [self.pub_base[ci] + self.chain_bits[ci] // 8 for ci in range(nc)]
+        ops = {
+            which: pubs[torch.tensor([[b0 + sh + i for i in range(NLIMBS)] for b0 in op_base],
+                                     device=dev)]
+            for which, sh in (("opx", 0), ("opy", NLIMBS))
+        }
+        _op_cache = {}
+
+        def op_limbs_gated(which, use_next):
+            """Σ_c chainflag_c·pub_op_c — flags from the TARGET row."""
+            key = (which, use_next)
+            if key not in _op_cache:
+                flags_c = (PREN if use_next else PRE)[:, PF_FIXED : PF_FIXED + nc]
+                _op_cache[key] = (flags_c[:, :, None] * ops[which][None] % P).sum(dim=1) % P
+            return _op_cache[key]
+
+        _form_cache = {}
+
+        def form_limbs(f: MF, nl: int):
+            """Σ coeff·value + const, limb-wise, reduced (cached per form)."""
+            key = (f, nl)
+            if key not in _form_cache:
+                parts = []
+                for t in f.terms:
+                    v = (slot_limbs(t.idx, t.off) if t.kind == "slot"
+                         else op_limbs_gated(t.kind, bool(t.off)))
+                    parts.append(v if t.coeff == 1 else v * (t.coeff % P) % P)
+                acc = sum(parts[1:], parts[0]) if parts else X.new_zeros((n, NLIMBS))
+                if nl > NLIMBS:
+                    acc = torch.nn.functional.pad(acc, (0, nl - NLIMBS))
+                if f.const:
+                    acc = acc + cvec(f.const_limbs(nl))
+                _form_cache[key] = acc % P if len(parts) > 1 or f.const else acc
+            return _form_cache[key]
+
+        flags_n = {p: PREN[:, PH[p]] for p in PHASES}
+        flags = {p: PRE[:, PH[p]] for p in PHASES}
+        limb_bits = 1 << bf.LIMB_BITS
+        kmul, kred = cvec(_KMUL), cvec(_KRED)
+
+        # C: mul identities (outputs on the NEXT row), one group per mul
+        for m in range(NUM_MULS):
+            wired = [(p, muls[m]) for p, muls in MUL_WIRING.items() if m < len(muls)]
+            a_eff = gated_sum([(flags_n[p], form_limbs(fa, NLIMBS)) for p, (_, fa, _) in wired])
+            b_eff = gated_sum([(flags_n[p], form_limbs(fb, NLIMBS)) for p, (_, _, fb) in wired])
+            r_eff = gated_sum([(flags_n[p], slot_limbs(bank, 1)) for p, (bank, _, _) in wired])
+            qv = vals_cn[:, M0Q + m]
+            prods = (a_eff[:, :, None] * b_eff[:, None, :] % P
+                     - qv[:, :, None] * PL[None, None, :] % P)  # (rows, i, j)
+            # row i shifted right by i (padding to 2·39 columns and re-cutting
+            # the flat rows at 77), then summed over i: Tm[k] = Σ_i prods[i, k − i]
+            skew = torch.nn.functional.pad(prods, (0, NLIMBS)).reshape(n, -1)
+            tm = skew[:, : NLIMBS * MUL_OUT].reshape(n, NLIMBS, MUL_OUT).sum(dim=1)
+            tm[:, :NLIMBS] -= r_eff
+            tm[:, 1:] += cm_n[:, m]
+            tm[:, :-1] -= cm_n[:, m] * limb_bits
+            tb.assert_group((tm + kmul) % P)
+
+        # D: red identity
+        wired_r = [(flags_n[p], reds[0]) for p, reds in RED_WIRING.items()]
+        f_eff = gated_sum([(fl, form_limbs(f, RED_OUT)) for fl, f in wired_r])
+        r_eff = gated_sum([(fl, slot_limbs(RR, 1)) for fl, _ in wired_r])
+        tr = f_eff - qs_n[:, None] * PL40
+        tr[:, :NLIMBS] -= r_eff
+        tr[:, 1:] += rcm_n
+        tr[:, :-1] -= rcm_n * limb_bits
+        tb.assert_group((tr + kred) % P)
+
+        # E: copy constraints — next.CP_slot = src
+        for slot in (CP3, CP4, CP5, CP6, CP7):
+            parts = [(flags_n[p], slot_limbs(slot, 1) - slot_limbs(src.idx, src.off))
+                     for p, plan in COPY_WIRING.items() for cp, src in plan if cp == slot]
+            if parts:
+                tb.assert_group(gated_sum(parts))
+        # CP1@N1 (Y carried into the OY row)
+        tb.assert_group(gate(flags_n["N1"], slot_limbs(CP1, 1) - slot_limbs(CP1, 0)))
+
+        # F: selection at L6 → next CP0..CP2 + inf transition
+        b_ = X[:, B_COL]
+        inf_ = X[:, INF_COL]
+        bi = b_ * inf_ % P
+        bni = b_ * (1 - inf_) % P
+        nb = (1 - b_) % P
+        fl6 = flags["L6"]
+        sel_specs = (
+            (op_limbs_gated("opx", False), CP3, CP5),  # x: op / mX3 / dX3
+            (op_limbs_gated("opy", False), CP7, CP6),  # y: op / mY3 / dY3
+            (ONE_L[None, :], RR, CP4),  # z: 1 / mZ3 / dZ3
+        )
+        for ci, (opl, madd_slot, dbl_slot) in enumerate(sel_specs):
+            selv = (gate(bi, opl) + gate(bni, slot_limbs(madd_slot, 0))
+                    + gate(nb, slot_limbs(dbl_slot, 0))) % P
+            tb.assert_group(gate(fl6, slot_limbs(CP0 + ci, 1) - selv))
+        tb.assert_group(fl6 * (NXT[:, INF_COL] - inf_ * nb % P) % P)
+
+        # G: chain start
+        gcs = PRE[:, PF_CHAINSTART]
+        tb.assert_group(gate(gcs, copies[:, 0]))
+        tb.assert_group(gate(gcs, copies[:, 1] - ONE_L))
+        tb.assert_group(gate(gcs, copies[:, 2]))
+        tb.assert_group(gcs * (inf_ - 1) % P)
+
+        # H: in-op propagation (gate: next row is L1..L6)
+        inop = sum(flags_n[p] for p in ("L1", "L2", "L3", "L4", "L5", "L6")) % P
+        tb.assert_group(gate(inop, torch.stack(
+            [NXT[:, B_COL] - b_, NXT[:, INF_COL] - inf_, NXT[:, S_COL] - X[:, S_COL]], dim=1)))
+
+        # I: x-collision guard (HI = 1 on L6 rows with b=1, inf=0)
+        tb.assert_group(gate(fl6 * bni % P, vals_c[:, M0R] - ONE_L))
+
+        # J: scalar accumulator [bytestart, scont], then the byte bindings
+        s_ = X[:, S_COL]
+        tb.assert_group(torch.stack([
+            PRE[:, PF_BYTESTART] * (s_ - b_) % P,
+            PRE[:, PF_SCONT] * ((NXT[:, S_COL] - 2 * s_ - NXT[:, B_COL]) % P) % P,
+        ], dim=1))
+        byte_pub = [self.pub_base[ci] + t for ci in range(nc) for t in range(self.chain_bits[ci] // 8)]
+        byte_flags = PRE[:, PF_FIXED + nc : PF_FIXED + nc + len(byte_pub)]
+        tb.assert_group(byte_flags * (s_[:, None] - pubs[torch.tensor(byte_pub, device=dev)]) % P)
+
+        # K: norm bindings, per chain [inf, ZI = 1, OX, OY]
+        for ci in range(nc):
+            cf = PRE[:, PF_FIXED + ci]
+            b0 = op_base[ci]
+            inf_pub = pubs[b0 + 2 * NLIMBS]
+            out_x = pubs[b0 + 2 * NLIMBS + 1 : b0 + 3 * NLIMBS + 1]
+            out_y = pubs[b0 + 3 * NLIMBS + 1 : b0 + 4 * NLIMBS + 1]
+            g0 = flags["N0"] * cf % P
+            live = flags_n["N1"] * cf % P * ((1 - inf_pub) % P) % P
+            tb.assert_group(g0 * (inf_ - inf_pub) % P)
+            tb.assert_group(gate(live, slot_limbs(M0R, 0) - ONE_L))
+            tb.assert_group(gate(live, slot_limbs(M2R, 0) - out_x))
+            tb.assert_group(gate(live, slot_limbs(M1R, 1) - out_y))
+
+    def eval(self, b):
+        """Scalar path (verifier at ζ / debugger) — same order as
+        ``eval_tensor``."""
+        ONE = b.constant(1)
+        # A: crumbs
+        for col in list(range(COPY0)) + list(range(MC0, B_COL)):
+            v = b.local(col)
+            b.assert_zero_all(
+                b.mul(
+                    b.mul(v, b.sub(v, ONE)),
+                    b.mul(b.sub(v, b.constant(2)), b.sub(v, b.constant(3))),
+                )
+            )
+        # B: bits
+        for col in (B_COL, INF_COL):
+            v = b.local(col)
+            b.assert_zero_all(b.mul(v, b.sub(v, ONE)))
+
+        pow4 = [b.constant(1 << (2 * i)) for i in range(MUL_CARRY_CRUMBS)]
+
+        def combine(get, base, ncr):
+            e = get(base)
+            for cc in range(1, ncr):
+                e = b.add(e, b.mul(pow4[cc], get(base + cc)))
+            return e
+
+        def bank_limbs(get, bank):
+            return [
+                combine(get, bank * VALUE_CRUMBS + i * 5, 5)
+                for i in range(NLIMBS)
+            ]
+
+        loc, nxt = b.local, b.next
+        vals_c = [bank_limbs(loc, s) for s in range(NCRUMB_BANKS)]
+        vals_cn = [bank_limbs(nxt, s) for s in range(NCRUMB_BANKS)]
+        copies = [
+            [loc(COPY0 + s * NLIMBS + i) for i in range(NLIMBS)]
+            for s in range(8)
+        ]
+        copies_n = [
+            [nxt(COPY0 + s * NLIMBS + i) for i in range(NLIMBS)]
+            for s in range(8)
+        ]
+
+        def slot_limbs(idx, off):
+            if idx < NCRUMB_BANKS:
+                return (vals_cn if off else vals_c)[idx]
+            return (copies_n if off else copies)[idx - NCRUMB_BANKS]
+
+        cm = [
+            [
+                combine(
+                    loc,
+                    MC0 + (m * MUL_CARRIES + kk) * MUL_CARRY_CRUMBS,
+                    MUL_CARRY_CRUMBS,
+                )
+                for kk in range(MUL_CARRIES)
+            ]
+            for m in range(NUM_MULS)
+        ]
+        cm_n = [
+            [
+                combine(
+                    nxt,
+                    MC0 + (m * MUL_CARRIES + kk) * MUL_CARRY_CRUMBS,
+                    MUL_CARRY_CRUMBS,
+                )
+                for kk in range(MUL_CARRIES)
+            ]
+            for m in range(NUM_MULS)
+        ]
+        qs_n = combine(nxt, RQ0, RED_Q_CRUMBS)
+        rcm_n = [
+            combine(nxt, RC0 + kk * RED_CARRY_CRUMBS, RED_CARRY_CRUMBS)
+            for kk in range(RED_CARRIES)
+        ]
+        del cm  # only next-row carries enter identities
+
+        flags = {p: b.preprocessed(PH[p]) for p in PHASES}
+        flags_n = {p: b.preprocessed_next(PH[p]) for p in PHASES}
+        ZERO = b.constant(0)
+
+        _op_cache: Dict[Tuple[str, bool], list] = {}
+
+        def op_limbs_gated(which, use_next):
+            hit = _op_cache.get((which, use_next))
+            if hit is not None:
+                return hit
+            out = []
+            for i in range(NLIMBS):
+                e = ZERO
+                for ci in range(self.num_chains):
+                    b0 = self.pub_base[ci] + self.chain_bits[ci] // 8
+                    pub_i = b0 + i + (0 if which == "opx" else NLIMBS)
+                    flag = (
+                        b.preprocessed_next(PF_FIXED + ci)
+                        if use_next
+                        else b.preprocessed(PF_FIXED + ci)
+                    )
+                    e = b.add(e, b.mul(flag, b.public(pub_i)))
+                out.append(e)
+            _op_cache[(which, use_next)] = out
+            return out
+
+        def form_limbs(f: MF, nl):
+            cl = f.const_limbs(nl) if f.const else [0] * nl
+            out = []
+            for i in range(nl):
+                e = b.constant(cl[i])
+                if i < NLIMBS:
+                    for t in f.terms:
+                        if t.kind == "slot":
+                            v = slot_limbs(t.idx, t.off)[i]
+                        else:
+                            v = op_limbs_gated(t.kind, bool(t.off))[i]
+                        e = b.add(e, b.mul(b.constant(t.coeff), v))
+                out.append(e)
+            return out
+
+        def effective(wiring_get, nl):
+            out = [ZERO] * nl
+            for p in PHASES:
+                f = wiring_get(p)
+                if f is None:
+                    continue
+                fl = form_limbs(f, nl)
+                for i in range(nl):
+                    out[i] = b.add(out[i], b.mul(flags_n[p], fl[i]))
+            return out
+
+        two10 = b.constant(1 << bf.LIMB_BITS)
+        # C: mul identities
+        for m in range(NUM_MULS):
+
+            def get_a(p, m=m):
+                muls = MUL_WIRING.get(p, [])
+                return muls[m][1] if m < len(muls) else None
+
+            def get_b(p, m=m):
+                muls = MUL_WIRING.get(p, [])
+                return muls[m][2] if m < len(muls) else None
+
+            aeff = effective(get_a, NLIMBS)
+            beff = effective(get_b, NLIMBS)
+            qc = vals_cn[M0Q + m]
+            rc = [ZERO] * NLIMBS
+            for p in PHASES:
+                muls = MUL_WIRING.get(p, [])
+                if m < len(muls):
+                    bank = muls[m][0]
+                    sl = slot_limbs(bank, 1)
+                    for i in range(NLIMBS):
+                        rc[i] = b.add(rc[i], b.mul(flags_n[p], sl[i]))
+            for kk in range(MUL_OUT):
+                e = ZERO
+                kv = 0
+                for i in range(max(0, kk - NLIMBS + 1), min(NLIMBS, kk + 1)):
+                    e = b.add(e, b.mul(aeff[i], beff[kk - i]))
+                    e = b.sub(e, b.mul(qc[i], b.constant(bf.P_LIMBS[kk - i])))
+                if kk < NLIMBS:
+                    e = b.sub(e, rc[kk])
+                if kk >= 1:
+                    e = b.add(e, cm_n[m][kk - 1])
+                    kv -= MUL_CARRY_OFFSET
+                if kk <= MUL_OUT - 2:
+                    e = b.sub(e, b.mul(two10, cm_n[m][kk]))
+                    kv += (1 << bf.LIMB_BITS) * MUL_CARRY_OFFSET
+                b.assert_zero_all(b.add(e, b.constant(kv % P_BB)))
+
+        # D: red identity
+        def get_r(p):
+            reds = RED_WIRING.get(p)
+            return reds[0] if reds else None
+
+        feff = effective(get_r, RED_OUT)
+        rc = [ZERO] * NLIMBS
+        for p in PHASES:
+            if RED_WIRING.get(p):
+                sl = slot_limbs(RR, 1)
+                for i in range(NLIMBS):
+                    rc[i] = b.add(rc[i], b.mul(flags_n[p], sl[i]))
+        pl40 = list(bf.P_LIMBS) + [0]
+        for kk in range(RED_OUT):
+            e = b.sub(feff[kk], b.mul(qs_n, b.constant(pl40[kk])))
+            kv = 0
+            if kk < NLIMBS:
+                e = b.sub(e, rc[kk])
+            if kk >= 1:
+                e = b.add(e, rcm_n[kk - 1])
+                kv -= RED_CARRY_OFFSET
+            if kk <= RED_OUT - 2:
+                e = b.sub(e, b.mul(two10, rcm_n[kk]))
+                kv += (1 << bf.LIMB_BITS) * RED_CARRY_OFFSET
+            b.assert_zero_all(b.add(e, b.constant(kv % P_BB)))
+
+        # E: copies
+        for slot in (CP3, CP4, CP5, CP6, CP7):
+            for i in range(NLIMBS):
+                e = ZERO
+                for p, plan in COPY_WIRING.items():
+                    for cp, src in plan:
+                        if cp != slot:
+                            continue
+                        diff = b.sub(
+                            slot_limbs(slot, 1)[i],
+                            slot_limbs(src.idx, src.off)[i],
+                        )
+                        e = b.add(e, b.mul(flags_n[p], diff))
+                b.assert_zero_all(e)
+        for i in range(NLIMBS):
+            b.assert_zero_all(
+                b.mul(
+                    flags_n["N1"],
+                    b.sub(slot_limbs(CP1, 1)[i], slot_limbs(CP1, 0)[i]),
+                )
+            )
+
+        # F: selection
+        bcol = b.local(B_COL)
+        infcol = b.local(INF_COL)
+        bi = b.mul(bcol, infcol)
+        bni = b.mul(bcol, b.sub(ONE, infcol))
+        nb = b.sub(ONE, bcol)
+        fl6 = flags["L6"]
+        one_l = [1] + [0] * (NLIMBS - 1)
+        opx_loc = op_limbs_gated("opx", False)
+        opy_loc = op_limbs_gated("opy", False)
+        for ci, (opv, madd_slot, dbl_slot) in enumerate(
+            ((opx_loc, CP3, CP5), (opy_loc, CP7, CP6), (None, RR, CP4))
+        ):
+            for i in range(NLIMBS):
+                opl = b.constant(one_l[i]) if opv is None else opv[i]
+                selv = b.add(
+                    b.add(
+                        b.mul(bi, opl),
+                        b.mul(bni, slot_limbs(madd_slot, 0)[i]),
+                    ),
+                    b.mul(nb, slot_limbs(dbl_slot, 0)[i]),
+                )
+                b.assert_zero_all(
+                    b.mul(fl6, b.sub(slot_limbs(CP0 + ci, 1)[i], selv))
+                )
+        b.assert_zero_all(
+            b.mul(fl6, b.sub(b.next(INF_COL), b.mul(infcol, nb)))
+        )
+
+        # G: chain start
+        gcs = b.preprocessed(PF_CHAINSTART)
+        for s, tgt in ((0, [0] * NLIMBS), (1, one_l), (2, [0] * NLIMBS)):
+            for i in range(NLIMBS):
+                b.assert_zero_all(
+                    b.mul(gcs, b.sub(copies[s][i], b.constant(tgt[i])))
+                )
+        b.assert_zero_all(b.mul(gcs, b.sub(infcol, ONE)))
+
+        # H: in-op propagation
+        inop = flags_n["L1"]
+        for p in ("L2", "L3", "L4", "L5", "L6"):
+            inop = b.add(inop, flags_n[p])
+        b.assert_zero_all(b.mul(inop, b.sub(b.next(B_COL), bcol)))
+        b.assert_zero_all(b.mul(inop, b.sub(b.next(INF_COL), infcol)))
+        b.assert_zero_all(b.mul(inop, b.sub(b.next(S_COL), b.local(S_COL))))
+
+        # I: guard
+        gate = b.mul(fl6, b.mul(bcol, b.sub(ONE, infcol)))
+        for i in range(NLIMBS):
+            b.assert_zero_all(
+                b.mul(gate, b.sub(vals_c[M0R][i], b.constant(one_l[i])))
+            )
+
+        # J: scalar accumulator
+        scol = b.local(S_COL)
+        b.assert_zero_all(
+            b.mul(b.preprocessed(PF_BYTESTART), b.sub(scol, bcol))
+        )
+        b.assert_zero_all(
+            b.mul(
+                b.preprocessed(PF_SCONT),
+                b.sub(b.next(S_COL), b.add(b.add(scol, scol), b.next(B_COL))),
+            )
+        )
+        byte_off = [0]
+        for bb_ in self.chain_bits:
+            byte_off.append(byte_off[-1] + bb_ // 8)
+        for ci in range(self.num_chains):
+            for t in range(self.chain_bits[ci] // 8):
+                col = PF_FIXED + self.num_chains + byte_off[ci] + t
+                b.assert_zero_all(
+                    b.mul(
+                        b.preprocessed(col),
+                        b.sub(scol, b.public(self.pub_base[ci] + t)),
+                    )
+                )
+
+        # K: norm bindings
+        for ci in range(self.num_chains):
+            cf = b.preprocessed(PF_FIXED + ci)
+            b0 = self.pub_base[ci] + self.chain_bits[ci] // 8
+            inf_pub = b.public(b0 + 2 * NLIMBS)
+            g0 = b.mul(flags["N0"], cf)
+            g1 = b.mul(flags_n["N1"], cf)
+            live = b.sub(ONE, inf_pub)
+            b.assert_zero_all(b.mul(g0, b.sub(infcol, inf_pub)))
+            for i in range(NLIMBS):
+                b.assert_zero_all(
+                    b.mul(
+                        b.mul(g1, live),
+                        b.sub(slot_limbs(M0R, 0)[i], b.constant(one_l[i])),
+                    )
+                )
+            for i in range(NLIMBS):
+                b.assert_zero_all(
+                    b.mul(
+                        b.mul(g1, live),
+                        b.sub(
+                            slot_limbs(M2R, 0)[i],
+                            b.public(b0 + 2 * NLIMBS + 1 + i),
+                        ),
+                    )
+                )
+            for i in range(NLIMBS):
+                b.assert_zero_all(
+                    b.mul(
+                        b.mul(g1, live),
+                        b.sub(
+                            slot_limbs(M1R, 1)[i],
+                            b.public(b0 + 3 * NLIMBS + 1 + i),
+                        ),
+                    )
+                )
