@@ -28,6 +28,7 @@ import torch
 
 from .. import kernels
 from ..field import babybear as bb
+from ..utils import spans
 
 WIDTH = 16
 RATE = 8  # sponge rate (words absorbed/squeezed per permutation)
@@ -351,6 +352,8 @@ def poseidon2_grind(base: torch.Tensor, pos: int, bits: int, start: int, count: 
     bytes."""
     if base.shape != (WIDTH,) or not 0 <= pos < RATE or not 0 <= bits <= 27 or count < 1:
         raise ValueError("grind: expected a (16,) state, 0 <= pos < 8, bits <= 27, count >= 1")
+    # the batch's one 8-byte result, counted on the plain path alike
+    spans.host_read(8)
     if not _on_card(base, "poseidon2_grind"):
         return grind_plain(base, pos, bits, start, count)
     base = base.contiguous()

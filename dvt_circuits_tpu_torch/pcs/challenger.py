@@ -18,6 +18,7 @@ from .. import kernels
 from ..field import babybear as bb
 from ..field import ext
 from ..hash.poseidon2 import RATE, WIDTH, poseidon2_grind, poseidon2_permute
+from ..utils import spans
 
 
 class DuplexChallenger:
@@ -52,7 +53,9 @@ class DuplexChallenger:
     def _duplex(self) -> None:
         st = torch.tensor([self._pending_state()], dtype=torch.int64, device=self.device)
         self.input_buffer.clear()
-        self.state = poseidon2_permute(st)[0].tolist()
+        out = poseidon2_permute(st)[0]
+        spans.host_read(out)
+        self.state = out.tolist()
         self.output_buffer = list(self.state[:RATE])
 
     def sample(self) -> int:

@@ -24,6 +24,7 @@ import torch
 from ..field import babybear as bb
 from ..field import ext
 from ..ntt import intt
+from ..utils import spans
 from ..utils.packing import pack_u32, unpack_rows
 from .challenger import DuplexChallenger
 from .merkle import MerkleTree, verify_openings_batch
@@ -74,7 +75,9 @@ def final_coefficients(codeword: torch.Tensor, shift: int, log_blowup: int) -> l
     n = codeword.shape[0]
     coeffs = intt(codeword)
     unscale = bb.powers(bb.s_inv(shift), n, codeword.device)
-    coeffs = ext.mul_base(coeffs, unscale).cpu().numpy()
+    coeffs = ext.mul_base(coeffs, unscale)
+    spans.host_read(coeffs)
+    coeffs = coeffs.cpu().numpy()
     keep = n >> log_blowup
     if np.any(coeffs[keep:]):
         raise AssertionError("final codeword exceeds degree bound — prover bug")
@@ -227,6 +230,7 @@ def fri_verify(proof: dict, shift: int, log_n: int, config: FriConfig,
             v0_r0, v1_r0 = v0, v1
         else:
             low = torch.tensor([i < n_half for i in idx], device=dev)[:, None]
+            spans.host_read(1)  # torch.equal's one boolean
             if not torch.equal(torch.where(low, v0, v1), expected):
                 raise FriError(f"fold mismatch entering round {r}")
         # fold to the next round's value at j
@@ -241,6 +245,7 @@ def fri_verify(proof: dict, shift: int, log_n: int, config: FriConfig,
     value = torch.zeros((nq, ext.D), dtype=torch.int64, device=dev)
     for c in reversed(final_coeffs):
         value = ext.add(ext.mul_base(value, x), ext.tensor(c, dev))
+    spans.host_read(1)  # torch.equal's one boolean
     if not torch.equal(value, expected):
         raise FriError("final polynomial mismatch")
 

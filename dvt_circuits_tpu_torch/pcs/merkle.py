@@ -31,6 +31,7 @@ from ..hash.poseidon2 import (
     poseidon2_permute,
     s_permute,
 )
+from ..utils import spans
 
 
 #: sponge-hash each row of an (n, w) int64 matrix → (n, 8) digests
@@ -64,7 +65,9 @@ def build_levels(matrix: torch.Tensor) -> list:
 
 def merkle_root(matrix: torch.Tensor) -> list:
     """Root digest of an (n, w) matrix as 8 ints."""
-    return [int(v) for v in build_tree(matrix)[-1].tolist()]
+    root = build_tree(matrix)[-1]
+    spans.host_read(root)
+    return [int(v) for v in root.tolist()]
 
 
 class MerkleTree:
@@ -81,7 +84,10 @@ class MerkleTree:
 
     def _materialize(self) -> list:
         if self._host is None:
-            host = [a.cpu().numpy().astype(np.uint32) for a in (self.matrix, self._buf)]
+            host = []
+            for a in (self.matrix, self._buf):
+                spans.host_read(a)
+                host.append(a.cpu().numpy().astype(np.uint32))
             self._host = [host[0], *tree_levels(host[1])]
         return self._host
 
@@ -143,4 +149,8 @@ def verify_openings_batch(root, indices, rows: torch.Tensor, paths: torch.Tensor
         digests = poseidon2_permute(pair.reshape(-1, WIDTH))[:, :DIGEST_WIDTH]
         idx = idx >> 1
     want = torch.as_tensor([int(v) for v in root], dtype=torch.int64, device=rows.device)
-    return want.shape == (DIGEST_WIDTH,) and bool((digests == want).all())
+    if want.shape != (DIGEST_WIDTH,):
+        return False
+    ok = (digests == want).all()
+    spans.host_read(ok)
+    return bool(ok)

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Optional
 
 from ..circuits.guest_api import GuestResult, run_guest
@@ -49,7 +48,7 @@ from ..stark.sha256_air import (Sha256Air, digest_from_publics, message_from_pub
                                 pad_message)
 from ..stark.verifier import StarkError
 from ..stark.verifier import verify as stark_verify
-from ..utils import cbor
+from ..utils import cbor, spans
 from . import curve_glue
 
 PROOF_FORMAT = "dvt-circuits-tpu/stark-proof/v7"
@@ -215,11 +214,65 @@ def prove_circuit(
     With a ``mesh`` (``parallel.mesh.Mesh``), the tables are sharded over
     its ``sp`` ranks, which all call this with the same arguments; without
     one, ``DVT_DIST`` decides (``_sharding_mesh``).  The sharded container
-    equals the single-device one on every rank (checked by its digest)."""
-    t0 = time.time()
+    equals the single-device one on every rank (checked by its digest).
+    ``timing`` holds the ``witness`` and ``tables`` spans' intervals in
+    whole ms."""
+    with spans.span("prove"):
+        return _prove_circuit(circuit_name, data, auth, config, setup, device, mesh)
+
+
+def _prove_circuit(circuit_name, data, auth, config, setup, device, mesh) -> dict:
+    with spans.span("witness", timed=True) as witness:
+        result, gadgets, entries, omitted, chacha_omitted, g1_omitted = _witness(
+            circuit_name, data, auth, setup)
+    with spans.span("tables", timed=True) as tables:
+        if mesh is None:
+            mesh = _sharding_mesh(device)
+        if mesh is None:
+            proofs = prove_tables(entries, config, device)
+        else:
+            proofs = _dist_prove_entries(entries, config, mesh)
+        for g, p in zip(gadgets, proofs[1:]):
+            g["proof"] = p
+
+    container = {
+        "format": PROOF_FORMAT,
+        "circuit": circuit_name,
+        "setup": setup,
+        "auth": auth,
+        "public_values": result.public_values.hex(),
+        "commit_count": result.commit_count,
+        "stark": proofs[0],
+        "gadgets": gadgets,
+        "gadgets_omitted": omitted,
+        "chacha_omitted": chacha_omitted,
+        "g1_omitted": g1_omitted,
+        "config": {
+            "log_blowup": config.log_blowup,
+            "num_queries": config.num_queries,
+            "proof_of_work_bits": config.proof_of_work_bits,
+            "log_final_poly_len": config.log_final_poly_len,
+            "shift": config.shift,
+        },
+        "timing": {"witness_ms": witness.ms, "prove_ms": tables.ms},
+    }
+    if mesh is not None:
+        from ..parallel.comm import all_gather_object
+
+        digests = all_gather_object(container_digest(container), mesh.axis("sp"))
+        if len(set(digests)) != 1:
+            raise ProveError(f"the ranks' sharded containers differ: {digests}")
+    return container
+
+
+def _witness(circuit_name: str, data, auth: bool, setup: str) -> tuple:
+    """The witness program's run and the tables it asks for: (result,
+    gadgets, table entries in proving order, SHA, ChaCha20 and G1 counts
+    omitted)."""
     with recording() as recorded_hashes, chacha_recording() as recorded_chacha, \
             g1_recording() as recorded_g1:
-        result = execute_circuit(circuit_name, data, auth, setup)
+        with spans.span("witness.execute"):
+            result = execute_circuit(circuit_name, data, auth, setup)
     if result.exit_code != 0:
         raise ProveError(
             f"witness execution failed (guest panic): {result.panic_message}"
@@ -293,20 +346,21 @@ def prove_circuit(
         g1_omitted = len(recorded_g1)
         recorded_g1 = []
     seen_g1: set = set()
-    for rel in recorded_g1:
-        key = repr(sorted(rel.items(), key=lambda kv: kv[0]))
-        if key in seen_g1:
-            continue
-        seen_g1.add(key)
-        try:
-            gadget, entry = curve_glue.build_gadget(
-                rel, sha_originals, sha_digests, result.public_values, auth
-            )
-        except (curve_glue.Unprovable, curve_glue.GlueError):
-            g1_omitted += 1
-            continue
-        gadgets.append(gadget)
-        g1_entries.append(entry)
+    with spans.span("witness.g1"):
+        for rel in recorded_g1:
+            key = repr(sorted(rel.items(), key=lambda kv: kv[0]))
+            if key in seen_g1:
+                continue
+            seen_g1.add(key)
+            try:
+                gadget, entry = curve_glue.build_gadget(
+                    rel, sha_originals, sha_digests, result.public_values, auth
+                )
+            except (curve_glue.Unprovable, curve_glue.GlueError):
+                g1_omitted += 1
+                continue
+            gadgets.append(gadget)
+            g1_entries.append(entry)
 
     chacha_entry, chacha_omitted = _chacha_table(recorded_chacha, sha_digests,
                                                  result.public_values, gadgets)
@@ -321,53 +375,14 @@ def prove_circuit(
     num_chunks = 1 << (num_chunks - 1).bit_length()
     air = Poseidon2StreamAir(num_chunks)
     trace, publics = air.generate_trace(words)
-    witness_time = time.time() - t0
 
-    t0 = time.time()
     entries = [(air, trace, publics)]
     if gadget_entry is not None:
         entries.append(gadget_entry)
     entries.extend(g1_entries)
     if chacha_entry is not None:
         entries.append(chacha_entry)
-    if mesh is None:
-        mesh = _sharding_mesh(device)
-    if mesh is None:
-        proofs = prove_tables(entries, config, device)
-    else:
-        proofs = _dist_prove_entries(entries, config, mesh)
-    for g, p in zip(gadgets, proofs[1:]):
-        g["proof"] = p
-    prove_time = time.time() - t0
-
-    container = {
-        "format": PROOF_FORMAT,
-        "circuit": circuit_name,
-        "setup": setup,
-        "auth": auth,
-        "public_values": result.public_values.hex(),
-        "commit_count": result.commit_count,
-        "stark": proofs[0],
-        "gadgets": gadgets,
-        "gadgets_omitted": omitted,
-        "chacha_omitted": chacha_omitted,
-        "g1_omitted": g1_omitted,
-        "config": {
-            "log_blowup": config.log_blowup,
-            "num_queries": config.num_queries,
-            "proof_of_work_bits": config.proof_of_work_bits,
-            "log_final_poly_len": config.log_final_poly_len,
-            "shift": config.shift,
-        },
-        "timing": {"witness_ms": int(witness_time * 1000), "prove_ms": int(prove_time * 1000)},
-    }
-    if mesh is not None:
-        from ..parallel.comm import all_gather_object
-
-        digests = all_gather_object(container_digest(container), mesh.axis("sp"))
-        if len(set(digests)) != 1:
-            raise ProveError(f"the ranks' sharded containers differ: {digests}")
-    return container
+    return result, gadgets, entries, omitted, chacha_omitted, g1_omitted
 
 
 #: most keystream blocks one ChaCha20 table carries (padded count included)
@@ -430,6 +445,12 @@ def verify_proof(
     ``strict=True``, a container whose curve relations were omitted
     (``g1_omitted != 0``), or a share-circuit container without any curve
     table, is rejected instead of flagged."""
+    with spans.span("verify"):
+        return _verify_proof(container, circuit_name, strict, device)
+
+
+def _verify_proof(container: dict, circuit_name: Optional[str], strict: bool,
+                  device) -> VerifyResult:
     if container.get("format") != PROOF_FORMAT:
         raise VerifyError(f"unknown proof format {container.get('format')!r}")
     name = container.get("circuit")
@@ -485,7 +506,7 @@ def verify_proof(
     g1_relations = 0
     sig_checks = 0
     try:
-        stark_verify(air, container["stark"], publics, config, challenger)
+        _stark_verify(air, container["stark"], publics, config, challenger)
         sha_ctx = None
         for entry in gadgets_list:
             kind = entry.get("kind")
@@ -525,6 +546,13 @@ def verify_proof(
     return VerifyResult(name, binding, g1_relations, g1_omitted, sig_checks)
 
 
+def _stark_verify(air, proof: dict, publics, config: StarkConfig,
+                  challenger: DuplexChallenger) -> None:
+    """One table's STARK on the chained transcript, as span ``verify.stark``."""
+    with spans.span("verify.stark"):
+        stark_verify(air, proof, publics, config, challenger)
+
+
 def _verify_sha_gadget(entry: dict, stream: bytes, config: StarkConfig,
                        challenger: DuplexChallenger):
     """Verify the multi-message SHA-256 table and its stream bindings
@@ -542,7 +570,7 @@ def _verify_sha_gadget(entry: dict, stream: bytes, config: StarkConfig,
         g_air.check_publics(g_publics)
     except ValueError as e:
         raise VerifyError(f"gadget publics: {e}") from None
-    stark_verify(g_air, entry["proof"], g_publics, config, challenger)
+    _stark_verify(g_air, entry["proof"], g_publics, config, challenger)
     for mi, off in enumerate(offsets):
         if off is None:
             continue
@@ -621,7 +649,7 @@ def _verify_g1_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfig,
         air.check_publics(publics)
     except ValueError as e:
         raise VerifyError(f"g1 publics: {e}") from None
-    stark_verify(air, entry["proof"], publics, config, challenger)
+    _stark_verify(air, entry["proof"], publics, config, challenger)
 
     if sha_ctx is None:
         raise VerifyError("g1 gadget requires the SHA-256 table")
@@ -713,7 +741,7 @@ def _verify_g1mul_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConfi
         air.check_publics(publics)
     except ValueError as e:
         raise VerifyError(f"g1mul publics: {e}") from None
-    stark_verify(air, entry["proof"], publics, config, challenger)
+    _stark_verify(air, entry["proof"], publics, config, challenger)
     try:
         _, sig_checks = curve_glue.verify_gadget_glue(
             air, publics, [int(v) for v in entry.get("extras", [])], stream, sha_ctx, auth,
@@ -750,7 +778,7 @@ def _verify_chacha_gadget(entry: dict, stream: bytes, sha_ctx, config: StarkConf
         c_air.check_publics(c_publics)
     except ValueError as e:
         raise VerifyError(f"chacha publics: {e}") from None
-    stark_verify(c_air, entry["proof"], c_publics, config, challenger)
+    _stark_verify(c_air, entry["proof"], c_publics, config, challenger)
     gb = 0
     for i, nb in enumerate(bcs):
         ct_len, key_msg = extras[1 + 2 * i], extras[2 + 2 * i]

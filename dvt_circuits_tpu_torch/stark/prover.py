@@ -32,6 +32,7 @@ from ..ntt.ntt import coeffs_to_coset_evals, coset_evals_to_coeffs, coset_lde
 from ..pcs.challenger import DuplexChallenger
 from ..pcs.fri import fri_prove
 from ..pcs.merkle import MerkleTree, merkle_root
+from ..utils import spans
 from ..utils.packing import pack_u32
 from .air import Air, AirBuilder
 from .config import StarkConfig
@@ -329,7 +330,9 @@ def cols_at(coeffs: torch.Tensor, point) -> torch.Tensor:
 
 def _eval_cols_at(coeffs: torch.Tensor, point) -> np.ndarray:
     """(n, w) coefficient columns at a BB4 point → (w, 4) uint32 values."""
-    return cols_at(coeffs, point).cpu().numpy().astype(np.uint32)
+    vals = cols_at(coeffs, point)
+    spans.host_read(vals)
+    return vals.cpu().numpy().astype(np.uint32)
 
 
 def coeffs_head(lde: torch.Tensor, shift: int, n: int) -> torch.Tensor:
@@ -416,6 +419,14 @@ def deep_body(air: Air, t_lde, p_lde, q_matrix, opened: dict, zeta, gzeta, gamma
 # ---------------------------------------------------------------------------
 
 
+def _commit(matrix: torch.Tensor):
+    """A matrix's Merkle tree and its root, read with the host mirrors
+    that the openings use (``MerkleTree._materialize``)."""
+    with spans.span("commit"):
+        tree = MerkleTree(matrix)
+        return tree, tree.root
+
+
 def prove(
     air: Air,
     trace,
@@ -426,7 +437,7 @@ def prove(
     """Prove one AIR instance on ``challenger.device``; chains onto the
     challenger's transcript.  ``trace``: (N, width) standard-form ints."""
     dev = challenger.device
-    trace = np.asarray(trace, dtype=np.int64)
+    trace = np.asarray(trace)
     n, width = trace.shape
     log_n = n.bit_length() - 1
     if 1 << log_n != n:
@@ -447,61 +458,65 @@ def prove(
     tree_p = None
     p_lde = torch.zeros((n_lde, 0), dtype=torch.int64, device=dev)
     if pre_width:
-        pre = np.asarray(air.preprocessed_trace(n), dtype=np.int64)
-        p_lde = lde_body(torch.as_tensor(pre, device=dev), config)
-        tree_p = MerkleTree(p_lde)
-        challenger.observe_many(tree_p.root)
+        with spans.span("lde"):
+            pre = np.asarray(air.preprocessed_trace(n), dtype=np.int64)
+            p_lde = lde_body(torch.as_tensor(pre, device=dev), config)
+        tree_p, root_p = _commit(p_lde)
+        challenger.observe_many(root_p)
 
     # 1. trace LDE + commit
-    t_lde = lde_body(torch.as_tensor(trace, device=dev), config)
-    tree_t = MerkleTree(t_lde)
-    challenger.observe_many(tree_t.root)
+    with spans.span("lde"):
+        t_lde = lde_body(torch.as_tensor(trace.astype(np.int64, copy=False), device=dev), config)
+    tree_t, root_t = _commit(t_lde)
+    challenger.observe_many(root_t)
     alpha = challenger.sample_ext()
 
     # 2.–3. constraint quotient + chunk commitment
-    tables = _domain_tables(log_n, config.log_blowup, config.shift, dev)
-    q_matrix, q_col_coeffs, count = quotient_body(
-        air, t_lde, p_lde, alpha, publics, tables, log_n, config
-    )
-    tree_q = MerkleTree(q_matrix)
-    challenger.observe_many(tree_q.root)
+    with spans.span("quotient"):
+        tables = _domain_tables(log_n, config.log_blowup, config.shift, dev)
+        q_matrix, q_col_coeffs, count = quotient_body(
+            air, t_lde, p_lde, alpha, publics, tables, log_n, config
+        )
+    tree_q, root_q = _commit(q_matrix)
+    challenger.observe_many(root_q)
     zeta = challenger.sample_ext()
     gzeta = ext.s_mul_base(zeta, bb.two_adic_generator(log_n))
 
-    # 4. openings at ζ and g·ζ; the transcript absorbs their Merkle digest
-    opened = openings_body(air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, config)
-    challenger.observe_many(opened_digest_std(opened, dev))
-    gamma = challenger.sample_ext()
+    with spans.span("open"):
+        # 4. openings at ζ and g·ζ; the transcript absorbs their Merkle digest
+        opened = openings_body(air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, config)
+        challenger.observe_many(opened_digest_std(opened, dev))
+        gamma = challenger.sample_ext()
 
-    # 5. DEEP codeword over the LDE domain, 6. FRI on it
-    G = deep_body(air, t_lde, p_lde, q_matrix, opened, zeta, gzeta, gamma, tables, config)
-    fri_proof = fri_prove(G, config.shift, config.fri, challenger)
+        # 5. DEEP codeword over the LDE domain, 6. FRI on it
+        G = deep_body(air, t_lde, p_lde, q_matrix, opened, zeta, gzeta, gamma, tables, config)
+        fri_proof = fri_prove(G, config.shift, config.fri, challenger)
 
-    # 7. outer openings at i and i + N/2 for each committed matrix
-    half = n_lde // 2
-    trees = [("t", tree_t), ("q", tree_q)]
-    if tree_p is not None:
-        trees.insert(0, ("p", tree_p))
-    openings = []
-    for q in fri_proof["queries"]:
-        li = int(q["index"])
-        rows = {}
-        for name, tree in trees:
-            row0, path0 = tree.open(li)
-            row1, path1 = tree.open(li + half)
-            rows[name] = {
-                "lo": {"row": pack_u32(row0), "path": pack_u32(path0)},
-                "hi": {"row": pack_u32(row1), "path": pack_u32(path1)},
-            }
-        openings.append(rows)
+        # 7. outer openings at i and i + N/2 for each committed matrix
+        half = n_lde // 2
+        trees = [("t", tree_t), ("q", tree_q)]
+        if tree_p is not None:
+            trees.insert(0, ("p", tree_p))
+        openings = []
+        for q in fri_proof["queries"]:
+            li = int(q["index"])
+            rows = {}
+            for name, tree in trees:
+                row0, path0 = tree.open(li)
+                row1, path1 = tree.open(li + half)
+                rows[name] = {
+                    "lo": {"row": pack_u32(row0), "path": pack_u32(path0)},
+                    "hi": {"row": pack_u32(row1), "path": pack_u32(path1)},
+                }
+            openings.append(rows)
 
     proof = {
         "version": 1,
         "log_n": log_n,
         "width": width,
         "public_values": publics,
-        "root_t": tree_t.root,
-        "root_q": tree_q.root,
+        "root_t": root_t,
+        "root_q": root_q,
         "opened_t_zeta": pack_u32(opened["t_zeta"]),
         "opened_t_gzeta": pack_u32(opened["t_gzeta"]),
         "opened_q_zeta": pack_u32(opened["q_zeta"]),
@@ -510,7 +525,7 @@ def prove(
         "constraint_count": count,
     }
     if pre_width:
-        proof["root_p"] = tree_p.root
+        proof["root_p"] = root_p
         proof["opened_p_zeta"] = pack_u32(opened["p_zeta"])
         proof["opened_p_gzeta"] = pack_u32(opened["p_gzeta"])
     return proof

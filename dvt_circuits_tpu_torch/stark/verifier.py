@@ -24,6 +24,7 @@ from ..field import ext
 from ..pcs.challenger import DuplexChallenger
 from ..pcs.fri import FriError, coset_points, field_rows, fri_verify
 from ..pcs.merkle import verify_openings_batch
+from ..utils import spans
 from ..utils.packing import unpack_u32
 from .air import Air, AirBuilder
 from .config import StarkConfig
@@ -279,6 +280,7 @@ def verify(
                 inv_gz = ext.inv(ext.sub(x4, ext.tensor(gzeta, dev)))
                 num_gz = ext.sub(fold_cols([p_rows, t_rows], gz_idx), fold_o_gz)
                 G = ext.add(G, ext.mul(num_gz, inv_gz))
+            spans.host_read(1)  # torch.equal's one boolean
             if not torch.equal(G, vals):
                 raise FriError(f"DEEP codeword mismatch ({part})")
 
