@@ -173,8 +173,9 @@ def plan_partial(rel: dict):
 PLANNERS = {"poly": plan_poly, "agg": plan_agg, "partial": plan_partial}
 
 
-def build_chip(rel: dict):
-    """(air, trace, publics, chain_bits, meta) for one recorded relation.
+def build_chip(rel: dict, device="cpu"):
+    """(air, trace, publics, chain_bits, meta) for one recorded relation,
+    the chip's trace assembled on ``device``.
 
     Raises Unprovable for the documented pathologies (identity points in
     the glue, x-collisions mid-ladder, oversize tables)."""
@@ -188,7 +189,7 @@ def build_chip(rel: dict):
     air = G1MulAir(chain_bits)
     try:
         trace, publics = air.generate_trace(
-            [(sb, op) for _, sb, op, _ in chains]
+            [(sb, op) for _, sb, op, _ in chains], device
         )
     except ValueError as e:  # x-collision guard
         raise Unprovable(str(e)) from None
@@ -218,15 +219,17 @@ def build_gadget(
     sha_digests: Sequence[bytes],
     stream: bytes,
     auth: bool,
+    device="cpu",
 ):
-    """(gadget_descriptor, (air, trace, publics)) for one recorded relation.
+    """(gadget_descriptor, (air, trace, publics)) for one recorded relation,
+    the chip's trace assembled on ``device``.
 
     Validates every binding the verifier will demand BEFORE committing to
     the gadget (advisor r3 finding 3: an unanchored gadget yields a
     guaranteed-reject container) — raises Unprovable otherwise."""
     import hashlib
 
-    air, trace, publics, chain_bits, meta = build_chip(rel)
+    air, trace, publics, chain_bits, meta = build_chip(rel, device)
     kind = rel["kind"]
     frames = _split_frames(stream)
     hashes = _hash_frames(frames)

@@ -224,7 +224,7 @@ def prove_circuit(
 def _prove_circuit(circuit_name, data, auth, config, setup, device, mesh) -> dict:
     with spans.span("witness", timed=True) as witness:
         result, gadgets, entries, omitted, chacha_omitted, g1_omitted = _witness(
-            circuit_name, data, auth, setup)
+            circuit_name, data, auth, setup, device)
     with spans.span("tables", timed=True) as tables:
         if mesh is None:
             mesh = _sharding_mesh(device)
@@ -265,10 +265,10 @@ def _prove_circuit(circuit_name, data, auth, config, setup, device, mesh) -> dic
     return container
 
 
-def _witness(circuit_name: str, data, auth: bool, setup: str) -> tuple:
+def _witness(circuit_name: str, data, auth: bool, setup: str, device) -> tuple:
     """The witness program's run and the tables it asks for: (result,
     gadgets, table entries in proving order, SHA, ChaCha20 and G1 counts
-    omitted)."""
+    omitted).  The G1 tables' traces are assembled on ``device``."""
     with recording() as recorded_hashes, chacha_recording() as recorded_chacha, \
             g1_recording() as recorded_g1:
         with spans.span("witness.execute"):
@@ -354,7 +354,7 @@ def _witness(circuit_name: str, data, auth: bool, setup: str) -> tuple:
             seen_g1.add(key)
             try:
                 gadget, entry = curve_glue.build_gadget(
-                    rel, sha_originals, sha_digests, result.public_values, auth
+                    rel, sha_originals, sha_digests, result.public_values, auth, device
                 )
             except (curve_glue.Unprovable, curve_glue.GlueError):
                 g1_omitted += 1

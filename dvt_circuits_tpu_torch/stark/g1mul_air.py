@@ -39,7 +39,10 @@ UNPROVABLE by the H·H⁻¹ = 1 guard (ValueError at witness time).
 
 Copied from ``dvt_circuits_tpu/stark/g1mul_air.py``; ``eval_tensor``, the
 prover's path, is ported to int64 PyTorch ops (the verifier replays the
-scalar ``eval`` at ζ).
+scalar ``eval`` at ζ), and ``generate_trace`` keeps only the ladder and the
+divisions by p on the host: the limbs, limb products, carry chains and
+crumbs are PyTorch ops on the prove's device (``_assemble_trace``), the
+trace bit-equal to the JAX package's numpy one.
 """
 
 from __future__ import annotations
@@ -48,9 +51,11 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..field.babybear import P as P_BB
 from ..hostcrypto.bls12_381 import P as P_INT
+from ..utils import spans
 from .air import Air
 from . import bigfield as bf
 from .bigfield import (
@@ -281,6 +286,164 @@ _KMUL = _carry_offsets(MUL_OUT, MUL_CARRY_OFFSET)
 _KRED = _carry_offsets(RED_OUT, RED_CARRY_OFFSET)
 
 
+#: control rows of ``generate_trace``'s (NCTL, n) int32 array: the bit,
+#: inf and scalar-accumulator columns, each row's phase and chain, and the
+#: RED gadget's quotient
+CTL_PHASE, CTL_CHAIN, CTL_RED_Q = 3, 4, 5
+NCTL = 6
+
+#: rows of the trace assembled at once on the device (its products take
+#: ~24 KB a row, the trace chunk 17 KB); each chunk goes to the host alone
+ROW_CHUNK = 8192
+
+#: bytes of one value's little-endian dump: limb i reads the three bytes
+#: from 10i // 8, so the last limb reads up to byte 49
+VALUE_BYTES = 50
+
+#: the failures ``_assemble_trace`` reduces to one flag each, in its order
+_CHECKS = (
+    "mul witness: ragged carry",
+    "mul witness: nonzero final carry",
+    "mul carry out of range",
+    "red witness: ragged carry",
+    "red witness: nonzero final carry",
+    "red carry out of range",
+)
+
+
+def _divmod_p(vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(quotient, remainder) of each Python int of ``vals`` by p."""
+    q = vals // P_INT
+    return q, vals - q * P_INT
+
+
+def _crumbs(x, k: int):
+    """Base-4 digits of ``x``, lowest first, on a new last axis of ``k``."""
+    shifts = torch.arange(0, 2 * k, 2, dtype=x.dtype, device=x.device)
+    return (x[..., None] >> shifts) & 3
+
+
+def _carry_chain(t, offset: int, crumbs: int):
+    """Carries of the identity columns ``t`` (rows, gadgets, k), each
+    column's total with the previous carry divided by 2^10, for the first
+    k − 1 columns; returned shifted by ``offset`` as (rows, gadgets, k − 1)
+    with three flags: a total not divisible by 2^10, a nonzero last total,
+    a shifted carry outside [0, 4^crumbs)."""
+    cols = t.permute(2, 0, 1).contiguous()
+    carries = torch.empty_like(cols[1:])
+    low = torch.zeros_like(cols[0])
+    c = low.clone()
+    for j in range(cols.shape[0] - 1):
+        tot = cols[j] + c
+        low |= tot
+        c = torch.bitwise_right_shift(tot, bf.LIMB_BITS, out=carries[j])
+    shifted = carries.permute(1, 2, 0) + offset
+    return shifted, torch.stack([
+        (low & bf.LIMB_MASK).any(), (cols[-1] + c).any(), (shifted >> (2 * crumbs)).any()])
+
+
+def _assemble_trace(dump: bytearray, ctl: np.ndarray, operands: np.ndarray, dev) -> np.ndarray:
+    """The (n, WIDTH) uint32 trace, assembled on ``dev`` in chunks of
+    ``ROW_CHUNK`` rows from every slot value's byte dump (NSLOTS × n ×
+    VALUE_BYTES, slot-major), ``ctl`` (NCTL, n) and the chains' operand
+    limbs (chains, 2, 39): each chunk's raw form limbs, the mul identities'
+    39 × 39 limb products minus q·p and r, both gadgets' carry chains and
+    every crumb expansion, in int32: every identity column and partial sum
+    is below ``bigfield.assert_static_bounds``'s bound, under 2^31.  Each
+    chunk is copied to the host in one read; the checks
+    ``bigfield.mul_witness_rows`` and ``red_witness_rows`` make come back as
+    one flag each, read once, and raise AssertionError."""
+    n = ctl.shape[1]
+    raw = torch.frombuffer(dump, dtype=torch.uint8).view(NSLOTS, n, VALUE_BYTES).to(dev)
+    ctl = torch.from_numpy(ctl).to(dev)
+    operands = torch.from_numpy(operands).to(dev)
+
+    def i32(xs):
+        return torch.tensor([int(x) for x in xs], dtype=torch.int32, device=dev)
+
+    # every slot's limbs, (NSLOTS, n, 39): limb i is 10 bits from bit 10i
+    first_bit = torch.arange(NLIMBS, dtype=torch.int32, device=dev) * bf.LIMB_BITS
+    byte, shift = (first_bit // 8).long(), first_bit % 8
+    limbs = torch.empty((NSLOTS, n, NLIMBS), dtype=torch.int32, device=dev)
+    for r0 in range(0, n, ROW_CHUNK):
+        b = raw[:, r0 : r0 + ROW_CHUNK].int()
+        word = b[..., byte] | b[..., byte + 1] << 8 | b[..., byte + 2] << 16
+        limbs[:, r0 : r0 + ROW_CHUNK] = word >> shift & bf.LIMB_MASK
+    del raw
+
+    pl, pl40 = i32(bf.P_LIMBS), i32(bf.P_LIMBS + (0,))
+    flags = torch.zeros(len(_CHECKS), dtype=torch.bool, device=dev)
+    out = np.empty((n, WIDTH), dtype=np.uint32)
+    host = torch.from_numpy(out.view(np.int32))
+    for r0 in range(0, n, ROW_CHUNK):
+        r1 = min(n, r0 + ROW_CHUNK)
+        rows = r1 - r0
+        prev = torch.arange(r0 - 1, r1 - 1, device=dev) % n
+        here = limbs[:, r0:r1]
+        slot = {1: here, 0: limbs[:, prev]}  # off → (NSLOTS, rows, 39)
+        chain = {1: ctl[CTL_CHAIN, r0:r1], 0: ctl[CTL_CHAIN, prev]}
+        phase = ctl[CTL_PHASE, r0:r1]
+        forms = {}
+
+        def raw_form(f: MF, width: int):
+            """Σ coeff · limbs + the constant's limbs, uncarried."""
+            if (f, width) not in forms:
+                acc = sum(t.coeff * (slot[t.off][t.idx] if t.kind == "slot"
+                                     else operands[chain[t.off], ("opx", "opy").index(t.kind)])
+                          for t in f.terms)
+                acc = torch.nn.functional.pad(acc, (0, width - NLIMBS))
+                if f.const:
+                    acc = acc + i32(f.const_limbs(width))
+                forms[f, width] = acc
+            return forms[f, width]
+
+        def by_phase(parts, width: int):
+            """Each row's value of its phase among (phase, value) ``parts``, else 0."""
+            acc = torch.zeros((rows, width), dtype=torch.int32, device=dev)
+            for p, v in parts:
+                acc = torch.where((phase == PH[p])[:, None], v, acc)
+            return acc
+
+        # mul identities: Σ_{i+j=k} a_i b_j − q_i p_j − r_k, one gadget a row
+        ids = []
+        for m in range(NUM_MULS):
+            wired = [(p, muls[m]) for p, muls in MUL_WIRING.items() if m < len(muls)]
+            a = by_phase([(p, raw_form(fa, NLIMBS)) for p, (_, fa, _) in wired], NLIMBS)
+            b = by_phase([(p, raw_form(fb, NLIMBS)) for p, (_, _, fb) in wired], NLIMBS)
+            r = by_phase([(p, slot[1][bank]) for p, (bank, _, _) in wired], NLIMBS)
+            prods = a[:, :, None] * b[:, None, :] - slot[1][M0Q + m][:, :, None] * pl
+            # row i shifted right by i, then summed over i (as eval_tensor)
+            skew = torch.nn.functional.pad(prods, (0, NLIMBS)).reshape(rows, -1)
+            t = skew[:, : NLIMBS * MUL_OUT].reshape(rows, NLIMBS, MUL_OUT).sum(dim=1, dtype=torch.int32)
+            t[:, :NLIMBS] -= r
+            ids.append(t)
+        mul_c, mul_bad = _carry_chain(torch.stack(ids, dim=1), MUL_CARRY_OFFSET, MUL_CARRY_CRUMBS)
+
+        # red identity: F − q·p − r over 40 columns
+        f = by_phase([(p, raw_form(reds[0], RED_OUT)) for p, reds in RED_WIRING.items()], RED_OUT)
+        red_q = ctl[CTL_RED_Q, r0:r1]
+        t = f - red_q[:, None] * pl40
+        t[:, :NLIMBS] -= slot[1][RR]
+        red_c, red_bad = _carry_chain(t[:, None], RED_CARRY_OFFSET, RED_CARRY_CRUMBS)
+        flags |= torch.cat([mul_bad, red_bad])
+
+        tr = torch.empty((rows, WIDTH), dtype=torch.int32, device=dev)
+        tr[:, :COPY0] = _crumbs(here[:NCRUMB_BANKS].permute(1, 0, 2), bf.CRUMBS_PER_LIMB).reshape(rows, -1)
+        tr[:, COPY0:MC0] = here[NCRUMB_BANKS:].permute(1, 0, 2).reshape(rows, -1)
+        tr[:, MC0:RQ0] = _crumbs(mul_c, MUL_CARRY_CRUMBS).reshape(rows, -1)
+        tr[:, RQ0:RC0] = _crumbs(red_q, RED_Q_CRUMBS)
+        tr[:, RC0:B_COL] = _crumbs(red_c, RED_CARRY_CRUMBS).reshape(rows, -1)
+        tr[:, B_COL:] = ctl[:3, r0:r1].T
+        host[r0:r1].copy_(tr)
+        spans.host_read(tr)
+    bad = flags.tolist()
+    spans.host_read(flags)
+    for msg, failed in zip(_CHECKS, bad):
+        if failed:
+            raise AssertionError(msg)
+    return out
+
+
 def _g1_gen():
     from ..hostcrypto.bls12_381 import G1_GEN
 
@@ -407,18 +570,21 @@ class G1MulAir(Air):
 
     # -- witness generation -------------------------------------------------
 
-    def generate_trace(self, chains: Sequence[Tuple[bytes, Tuple[int, int]]]):
+    def generate_trace(self, chains: Sequence[Tuple[bytes, Tuple[int, int]]], device="cpu"):
         """chains: per chain (scalar big-endian bytes, operand affine point).
 
-        Raises ValueError on the documented unprovable x-collision
-        pathology (adding ±P to itself mid-ladder)."""
+        The ladder, the gadgets' form values and their quotients by p run
+        on the host's Python ints; the limbs, products, carry chains and
+        crumbs are assembled on ``device`` and the trace comes back to the
+        host as an (n, WIDTH) uint32 array.  Raises ValueError on the
+        documented unprovable x-collision pathology (adding ±P to itself
+        mid-ladder)."""
         assert len(chains) == self.num_chains
         n = 1 << self.log_rows
         vals = np.zeros((n, NSLOTS), dtype=object)
         vals[:, :] = 0
-        bits_col = np.zeros(n, dtype=np.uint32)
-        inf_col = np.zeros(n, dtype=np.uint32)
-        s_col = np.zeros(n, dtype=np.uint32)
+        ctl = np.zeros((NCTL, n), dtype=np.int32)
+        bits_col, inf_col, s_col = ctl[:3]
 
         publics: List[int] = []
         h_rows: List[Tuple[int, int]] = []  # (L6 row, H) for batch inversion
@@ -503,7 +669,17 @@ class G1MulAir(Air):
                 inv_run = inv_run * h % P_INT
                 vals[row, INVV] = hinv
                 vals[row, M0R] = h * hinv % P_INT
-        trace = self._build_trace(vals, bits_col, inf_col, s_col, publics)
+        ctl[CTL_PHASE], ctl[CTL_CHAIN] = self._row_layout()
+        ctl[CTL_RED_Q] = self._gadget_quotients(vals, ctl[CTL_PHASE], ctl[CTL_CHAIN], chains)
+        operands = np.array([[bf.int_to_limbs(int(x)), bf.int_to_limbs(int(y))]
+                             for _, (x, y) in chains], dtype=np.int32)
+        # one little-endian dump of every slot value, slot-major
+        dump = bytearray().join([v.to_bytes(VALUE_BYTES, "little")
+                                 for v in vals.T.ravel().tolist()])
+        dev = torch.device(device)
+        trace = _assemble_trace(dump, ctl, operands, dev)
+        if dev.type == "cuda":
+            spans.count("g1_trace_rows", n)
         return trace, publics
 
     def _exec_ladder(self, acc, inf, op, b) -> Dict[str, int]:
@@ -598,133 +774,61 @@ class G1MulAir(Air):
         )
         v[r + 6, CP3], v[r + 6, CP7] = e["mX3"], e["mY3"]
 
-    # -- batched witness assembly ------------------------------------------
+    # -- gadget witnesses on Python ints ------------------------------------
 
-    def _phase_of(self) -> List[str]:
-        n = 1 << self.log_rows
-        return [row["ph"] for row in self.rows] + ["pad"] * (n - self.min_rows)
+    def _row_layout(self) -> Tuple[List[int], List[int]]:
+        """Each row's phase (``PH``; padding rows ``len(PHASES)``) and chain."""
+        pad = (1 << self.log_rows) - self.min_rows
+        return ([PH[row["ph"]] for row in self.rows] + [len(PHASES)] * pad,
+                [row["c"] for row in self.rows] + [0] * pad)
 
-    def _build_trace(self, vals, bits_col, inf_col, s_col, publics):
-        n = 1 << self.log_rows
-        phase_of = self._phase_of()
-        phase_rows = {
-            p: np.array(
-                [i for i, pp in enumerate(phase_of) if pp == p], dtype=int
-            )
-            for p in PHASES
-        }
-        # limb matrix for every slot
-        L = np.zeros((n, NSLOTS, NLIMBS), dtype=np.int64)
-        for s in range(NSLOTS):
-            L[:, s] = bf.ints_to_limb_rows([vals[i, s] for i in range(n)])
+    def _gadget_quotients(self, vals, phase, chain, chains) -> np.ndarray:
+        """Every gadget's input forms on Python ints, divided by p row by
+        row: fills the mul quotient slots M0Q..M2Q of ``vals`` and returns
+        the RED quotients (n,).  Raises AssertionError where an input is
+        out of range or a remainder differs from the slot its gadget
+        outputs."""
+        n = len(vals)
+        rows_of = {p: np.flatnonzero(phase == PH[p]) for p in PHASES}
+        ops = {kind: np.array([int(pt[i]) for _, pt in chains], dtype=object)[chain]
+               for i, kind in enumerate(("opx", "opy"))}
 
-        # per-chain operand limbs per row (for raw form reconstruction)
-        op_limbs = {"opx": np.zeros((n, NLIMBS), np.int64), "opy": np.zeros((n, NLIMBS), np.int64)}
-        for r, row in enumerate(self.rows):
-            c = row["c"]
-            b0 = self.pub_base[c] + self.chain_bits[c] // 8
-            op_limbs["opx"][r] = publics[b0 : b0 + NLIMBS]
-            op_limbs["opy"][r] = publics[b0 + NLIMBS : b0 + 2 * NLIMBS]
-
-        def term_rows(t: T, rows_idx):
-            src = rows_idx + (t.off - 1)  # off=1 → same row, off=0 → prev
-            if t.kind == "slot":
-                return L[src % n, t.idx]
-            return op_limbs[t.kind][src % n]
-
-        def term_ints(t: T, rows_idx):
-            src = (rows_idx + (t.off - 1)) % n
-            if t.kind == "slot":
-                return [int(vals[i, t.idx]) for i in src]
-            return [bf.limbs_to_int(op_limbs[t.kind][i]) for i in src]
-
-        def form_raw(f: MF, rows_idx, nl):
-            out = np.zeros((len(rows_idx), nl), dtype=np.int64)
+        def form_ints(f: MF, rows):
+            out = f.const
             for t in f.terms:
-                out[:, :NLIMBS] += t.coeff * term_rows(t, rows_idx)
-            if f.const:
-                out += np.asarray(f.const_limbs(nl), dtype=np.int64)[None]
+                src = (rows + (t.off - 1)) % n
+                v = vals[src, t.idx] if t.kind == "slot" else ops[t.kind][src]
+                out = out + (v if t.coeff == 1 else t.coeff * v)
             return out
 
-        def form_ints(f: MF, rows_idx):
-            outs = [f.const] * len(rows_idx)
-            for t in f.terms:
-                for j, v in enumerate(term_ints(t, rows_idx)):
-                    outs[j] += t.coeff * v
-            return outs
-
-        trace = np.zeros((n, WIDTH), dtype=np.uint32)
-
-        # mul gadgets: batch witness per physical slot
         for m in range(NUM_MULS):
-            a_ints = [0] * n
-            b_ints = [0] * n
-            a_raw = np.zeros((n, NLIMBS), dtype=np.int64)
-            b_raw = np.zeros((n, NLIMBS), dtype=np.int64)
-            out_bank = [None] * n
+            prod = np.zeros(n, dtype=object)
+            want = np.zeros(n, dtype=object)
             for p, muls in MUL_WIRING.items():
-                if m >= len(muls):
+                if m >= len(muls) or not len(rows_of[p]):
                     continue
                 bank, fa, fb = muls[m]
-                rows_idx = phase_rows[p]
-                if not len(rows_idx):
-                    continue
-                for j, i in enumerate(rows_idx):
-                    out_bank[i] = bank
-                av = form_ints(fa, rows_idx)
-                bv = form_ints(fb, rows_idx)
-                for j, i in enumerate(rows_idx):
-                    a_ints[i], b_ints[i] = av[j], bv[j]
-                a_raw[rows_idx] = form_raw(fa, rows_idx, NLIMBS)
-                b_raw[rows_idx] = form_raw(fb, rows_idx, NLIMBS)
-            q_ints, r_ints, carries = bf.mul_witness_rows(
-                a_ints, b_ints, a_raw, b_raw
-            )
-            for i in range(n):
-                if out_bank[i] is not None:
-                    assert r_ints[i] == vals[i, out_bank[i]], (m, i)
-                else:
-                    assert r_ints[i] == 0
-                vals[i, M0Q + m] = q_ints[i]
-            L[:, M0Q + m] = bf.ints_to_limb_rows(q_ints)
-            base = MC0 + m * MUL_CARRIES * MUL_CARRY_CRUMBS
-            trace[:, base : base + MUL_CARRIES * MUL_CARRY_CRUMBS] = (
-                bf.small_to_crumbs(carries, MUL_CARRY_CRUMBS).reshape(n, -1)
-            )
+                rows = rows_of[p]
+                a, b = form_ints(fa, rows), form_ints(fb, rows)
+                if (a < 0).any() or (b < 0).any():
+                    raise AssertionError(f"mul {m} witness: negative input at {p}")
+                prod[rows] = a * b
+                want[rows] = vals[rows, bank]
+            q, r = _divmod_p(prod)
+            if (r != want).any():
+                raise AssertionError(f"mul {m} witness: product differs from its output slot")
+            vals[:, M0Q + m] = q
 
-        # red gadget
-        f_ints = [0] * n
-        f_raw = np.zeros((n, RED_OUT), dtype=np.int64)
+        f = np.zeros(n, dtype=object)
         for p, reds in RED_WIRING.items():
-            f = reds[0]
-            rows_idx = phase_rows[p]
-            if not len(rows_idx):
-                continue
-            fv = form_ints(f, rows_idx)
-            for j, i in enumerate(rows_idx):
-                f_ints[i] = fv[j]
-            f_raw[rows_idx] = form_raw(f, rows_idx, RED_OUT)
-        q_small, r_ints, carries = bf.red_witness_rows(f_ints, f_raw)
-        for i in range(n):
-            assert r_ints[i] == vals[i, RR], i
-        trace[:, RQ0 : RQ0 + RED_Q_CRUMBS] = bf.small_to_crumbs(
-            q_small, RED_Q_CRUMBS
-        )
-        trace[:, RC0 : RC0 + RED_CARRIES * RED_CARRY_CRUMBS] = (
-            bf.small_to_crumbs(carries, RED_CARRY_CRUMBS).reshape(n, -1)
-        )
-
-        # crumb banks (recombined value slots 0..7) and copy limbs
-        trace[:, :COPY0] = bf.limbs_to_crumbs(L[:, :NCRUMB_BANKS]).reshape(
-            n, -1
-        )
-        trace[:, COPY0:MC0] = (
-            L[:, NCRUMB_BANKS:NSLOTS].reshape(n, -1).astype(np.uint32)
-        )
-        trace[:, B_COL] = bits_col
-        trace[:, INF_COL] = inf_col
-        trace[:, S_COL] = s_col
-        return trace
+            if len(rows_of[p]):
+                f[rows_of[p]] = form_ints(reds[0], rows_of[p])
+        if ((f < 0) | (f >= 64 * P_INT)).any():
+            raise AssertionError("reduction form out of quotient range")
+        q, r = _divmod_p(f)
+        if (r != vals[:, RR]).any():
+            raise AssertionError("red witness: remainder differs from its output slot")
+        return q.astype(np.int64)
 
     # -- constraint evaluation ---------------------------------------------
     #

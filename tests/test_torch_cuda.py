@@ -7,14 +7,16 @@ import hashlib
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from dvt_circuits_tpu_torch import probe_vpu
 from dvt_circuits_tpu_torch.curve import fp, g1, g2
 from dvt_circuits_tpu_torch.hash import keccak
 from dvt_circuits_tpu_torch.hash import poseidon2 as p2
 from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
-from dvt_circuits_tpu_torch.stark import TEST_CONFIG, prove_tables, verify
+from dvt_circuits_tpu_torch.stark import TEST_CONFIG, g1mul_air, prove_tables, verify
 from dvt_circuits_tpu_torch.stark.airs import FibonacciAir
+from dvt_circuits_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +87,50 @@ def test_verifier_on_card_accepts_card_proof(card):
     assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device=card)
     assert p2.poseidon2_permute.launches > before
     assert verify(FibonacciAir(), proof, publics, TEST_CONFIG, device="cpu")
+
+
+def _g1mul_chains(count, bits):
+    rng = np.random.default_rng(count * bits)
+    return [(rng.bytes(bits // 8), host.g1_mul(host.G1_GEN, int(rng.integers(2, 1 << 40))))
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("row_chunk", [None, 1000])
+def test_g1mul_trace_on_card_equals_cpu(card, monkeypatch, row_chunk):
+    """Three 256-bit chains: the trace assembled on the card equals the
+    CPU's byte for byte; under a profiler session ``g1_trace_rows`` counts
+    the table's rows and the reads bring back the trace and the checks'
+    flags, no more."""
+    if row_chunk:
+        monkeypatch.setattr(g1mul_air, "ROW_CHUNK", row_chunk)
+    chains = _g1mul_chains(3, 256)
+    air = g1mul_air.G1MulAir((256,) * 3)
+    want, want_pub = air.generate_trace(chains, device="cpu")
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("probe"):
+            got, pub = air.generate_trace(chains, device=card)
+    probe, = [r for r in spans.records() if r.name == "probe"]
+    spans.clear()
+    n = got.shape[0]
+    assert got.dtype == np.uint32 and np.array_equal(got, want) and pub == want_pub
+    assert probe.counters["g1_trace_rows"] == n == 8192
+    trace_bytes = n * g1mul_air.WIDTH * 4
+    assert trace_bytes <= probe.counters["d2h_bytes"] <= trace_bytes + len(g1mul_air._CHECKS)
+
+
+def test_g1mul_trace_on_card_refuses_a_planted_quotient(card, monkeypatch):
+    divmod_p = g1mul_air._divmod_p
+
+    def planted(vals):
+        q, r = divmod_p(vals)
+        q = q.copy()
+        q[1] += 1
+        return q, r
+
+    monkeypatch.setattr(g1mul_air, "_divmod_p", planted)
+    with pytest.raises(AssertionError, match="mul witness"):
+        g1mul_air.G1MulAir((256,) * 3).generate_trace(_g1mul_chains(3, 256), device=card)
 
 
 def _k1c_launches(n):

@@ -28,7 +28,7 @@ from dvt_circuits_tpu_torch.dkg.scenario_gen import DkgCommittee
 from dvt_circuits_tpu_torch.hostcrypto import bls12_381 as host
 from dvt_circuits_tpu_torch.pcs.challenger import DuplexChallenger
 from dvt_circuits_tpu_torch.prover import curve_glue
-from dvt_circuits_tpu_torch.stark import TEST_CONFIG, prove_tables, verify
+from dvt_circuits_tpu_torch.stark import TEST_CONFIG, g1mul_air, prove_tables, verify
 from dvt_circuits_tpu_torch.stark.airs import FibonacciAir
 from dvt_circuits_tpu_torch.stark.g1mul_air import G1MulAir
 from dvt_circuits_tpu_torch.stark.sha256_air import Sha256Air, pad_message
@@ -62,6 +62,66 @@ def test_g1mul_traces_equal_jax():
         assert ours.operand_of(publics, c) == point
         inf, *xy = ours.result_of(publics, c)
         assert (inf, tuple(xy)) == (0, host.g1_mul(point, int.from_bytes(scalar, "big")))
+
+
+def _scalar_case(chains, scalars):
+    """Chain 0's scalar made all zero (its result the point at infinity) or
+    given two leading zero bytes; otherwise the chains as drawn."""
+    (scalar, point), rest = chains[0], chains[1:]
+    if scalars == "zero":
+        scalar = bytes(len(scalar))
+    elif scalars == "leading-zeros":
+        scalar = bytes(2) + scalar[2:]
+    return [(scalar, point)] + rest
+
+
+@pytest.mark.parametrize("chain_bits, scalars, row_chunk", [
+    ((8,), "random", None),
+    ((8, 16), "random", None),
+    ((256,), "random", None),
+    ((16, 8, 24), "random", None),
+    ((8, 16), "zero", None),
+    ((24, 16), "leading-zeros", None),
+    ((16, 8, 24), "random", 64),
+    ((256,), "leading-zeros", 200),
+], ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_g1mul_trace_assembly_equals_jax(monkeypatch, chain_bits, scalars, row_chunk):
+    """The trace assembled by torch ops on the CPU equals the JAX package's
+    numpy one, padding rows included; chunks of 64 and 200 rows put their
+    borders inside ladder steps and inside chains (200 leaves a short last
+    chunk)."""
+    if row_chunk:
+        monkeypatch.setattr(g1mul_air, "ROW_CHUNK", row_chunk)
+    chains = _scalar_case(_chains(chain_bits, sum(chain_bits)), scalars)
+    ours = G1MulAir(chain_bits)
+    trace, publics = ours.generate_trace(chains, device="cpu")
+    j_trace, j_publics = JaxG1MulAir(chain_bits).generate_trace(chains)
+    assert trace.dtype == np.uint32 and trace.shape == j_trace.shape
+    assert trace.shape[0] > ours.min_rows  # padding rows
+    assert np.array_equal(trace, j_trace)
+    assert publics == j_publics
+    assert ours.result_of(publics, 0)[0] == (scalars == "zero")
+
+
+@pytest.mark.parametrize("call, message", [(1, "mul witness"), (4, "red witness")],
+                         ids=["mul-quotient", "red-quotient"])
+def test_g1mul_trace_assembly_refuses_a_planted_quotient(monkeypatch, call, message):
+    """A quotient off by one, its remainder kept, fails the device's carry
+    checks: mul 0's is the first division, the RED gadget's the fourth."""
+    divmod_p, calls = g1mul_air._divmod_p, []
+
+    def planted(vals):
+        q, r = divmod_p(vals)
+        calls.append(1)
+        if len(calls) == call:
+            q = q.copy()
+            q[1] += 1
+        return q, r
+
+    monkeypatch.setattr(g1mul_air, "_divmod_p", planted)
+    with pytest.raises(AssertionError, match=message):
+        G1MulAir((8,)).generate_trace(_chains((8,), 13), device="cpu")
+    assert len(calls) == 4
 
 
 def test_prove_tables_with_g1mul_matches_host_prover():
