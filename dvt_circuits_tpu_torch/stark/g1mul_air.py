@@ -678,8 +678,8 @@ class G1MulAir(Air):
                                  for v in vals.T.ravel().tolist()])
         dev = torch.device(device)
         trace = _assemble_trace(dump, ctl, operands, dev)
-        if dev.type == "cuda":
-            spans.count("g1_trace_rows", n)
+        spans.count("g1_trace_rows", n)
+        spans.count("g1_chain_rows", self.min_rows)  # the rows before the padding
         return trace, publics
 
     def _exec_ladder(self, acc, inf, op, b) -> Dict[str, int]:

@@ -191,6 +191,28 @@ def test_grind_kernel_matches_plain(card, pos):
     assert p2.poseidon2_grind(base, pos, 12, max(want - 5, 0), 11) == want
 
 
+def test_sponge_and_tree_past_2_31_elements(card):
+    """K1b and K1c at the 9-of-13 finalization's g1mul LDE, (2^19, 4,314):
+    2.26e9 elements, so the flat index passes 2^31 inside row 497,794."""
+    from dvt_circuits_tpu_torch.pcs.merkle import build_tree
+
+    n, w = 1 << 19, 4314
+    row = (1 << 31) // w
+    assert row == 497_794 and row * w < 1 << 31 < (row + 1) * w
+    gen = torch.Generator(device=card).manual_seed(19)
+    m = torch.randint(0, p2.bb.P, (n, w), dtype=torch.int64, device=card, generator=gen)
+    leaves = p2.poseidon2_hash_rows(m)
+    rows = torch.tensor([0, 1, row - 1, row, row + 1, n - 1], device=card)
+    assert torch.equal(leaves[rows], p2.hash_rows_plain(m[rows]))
+    tree = build_tree(m)
+    del m
+    assert torch.equal(tree[:n], leaves)
+    buf = torch.empty((2 * n - 1, 8), dtype=torch.int64, device=card)
+    buf[:n] = leaves
+    p2.merkle_levels_plain(buf, n)
+    assert torch.equal(tree[-1], buf[-1])
+
+
 # n = tiles * kTile + extra: one product, a tile less one, a tile and one,
 # 1,000, and 2^16 + 3 over many tiles; each also on views whose rows start 8
 # bytes off a 16-byte boundary (the wrapper copies them for the bulk copies)

@@ -25,6 +25,7 @@ from dvt_circuits_tpu_torch.dkg.verification import compute_seed_exchange_hash
 from dvt_circuits_tpu_torch.pcs.challenger import DuplexChallenger
 from dvt_circuits_tpu_torch.prover import pipeline
 from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
+from dvt_circuits_tpu_torch.stark.g1mul_air import G1MulAir
 from dvt_circuits_tpu_torch.utils import spans
 from dvt_circuits_tpu_torch.utils.packing import unpack_u32
 
@@ -273,3 +274,23 @@ def test_timed_span_reads_the_clock_when_off():
         pass
     assert w.ms >= 0 and w.end_ns >= w.start_ns
     assert spans.records() == []
+
+
+def test_chain_rows_are_counted_on_the_g1_span():
+    """``g1_chain_rows`` and ``g1_trace_rows`` on ``witness.g1``: each g1mul
+    table's rows before its padding, Σ bits·7 + 2 per chain, and its
+    height, counted once the table is assembled, on any device."""
+    data = DkgCommittee(3, 2).shared_data_bad_secret(0, 1, True)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, gadgets, entries, *_ = pipeline._witness(CIRCUIT, data, True, "secp-commitment",
+                                                    torch.device("cpu"))
+    g1 = [g for g in gadgets if g["kind"] == "g1mul"]
+    assert g1, "the curve fault records a curve relation"
+    rows = sum(b * 7 + 2 for g in g1 for b in g["block_counts"])
+    heights = [trace.shape[0] for air, trace, _ in entries if isinstance(air, G1MulAir)]
+    assert len(heights) == len(g1) and rows < sum(heights)
+    (span,) = [r for r in spans.records() if r.name == "witness.g1"]
+    assert span.counters["g1_chain_rows"] == rows
+    assert span.counters["g1_trace_rows"] == sum(heights)
+    spans.clear()
