@@ -1146,8 +1146,8 @@ def _log_tables(container: dict) -> list:
 
 @contextlib.contextmanager
 def _phase_memory(targets=None):
-    """While active, each phase of ``stark.prover.prove`` (LDE, commit, host
-    copy of a committed matrix, quotient, openings, DEEP, FRI), or each
+    """While active, each phase of ``stark.prover.prove`` (LDE, commit, a
+    tree's batched openings, quotient, openings, DEEP, FRI), or each
     (holder, name) of ``targets``, is timed on the host clock between two
     synchronizes and followed by the device memory allocated and the peak so
     far; yields the list of (phase, shape of its first tensor argument, ms,
@@ -1161,8 +1161,6 @@ def _phase_memory(targets=None):
         def timed(*args, **kwargs):
             tensors = [a.matrix if isinstance(a, MerkleTree) else a for a in args]
             shape = next((tuple(a.shape) for a in tensors if isinstance(a, torch.Tensor)), None)
-            if name == "_materialize" and args[0]._host is not None:
-                return fn(*args, **kwargs)  # the mirror is fetched once per tree
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -1177,7 +1175,7 @@ def _phase_memory(targets=None):
     if targets is None:
         targets = [(pr, name) for name in ("lde_body", "MerkleTree", "quotient_body",
                                            "openings_body", "deep_body", "fri_prove")]
-        targets.append((MerkleTree, "_materialize"))
+        targets.append((MerkleTree, "open_many"))
     saved = [(holder, name, getattr(holder, name)) for holder, name in targets]
     for holder, name, fn in saved:
         setattr(holder, name, wrap(name, fn))
@@ -1552,7 +1550,8 @@ def phase_g1_breakdown() -> None:
         torch.as_tensor(np.asarray(air.preprocessed_trace(n), dtype=np.int64), device=dev), cfg))
     timed("leaf sponge of the trace LDE (hash_rows)", lambda: hash_rows(t_lde))
     tree = timed("trace commit (leaf sponge + compress levels)", lambda: MerkleTree(t_lde))
-    timed("host copy of the committed LDE (MerkleTree._materialize)", tree._materialize)
+    timed("80 openings of the committed LDE (MerkleTree.open_many)",
+          lambda: tree.open_many(range(0, t_lde.shape[0], t_lde.shape[0] // 80)))
     tables = pr._domain_tables(log_n, cfg.log_blowup, cfg.shift, dev)
     args = (t_lde, p_lde, alpha, publics, tables, log_n, cfg)
     q_matrix, q_col_coeffs, count = timed("constraint quotient (eval_tensor)",

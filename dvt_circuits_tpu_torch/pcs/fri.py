@@ -111,17 +111,17 @@ def fri_prove(codeword: torch.Tensor, shift: int, config: FriConfig,
 
     pow_witness = challenger.grind(config.proof_of_work_bits)
 
-    queries = []
-    for _ in range(config.num_queries):
-        leaf_index = challenger.sample_bits(log_n - 1)
-        rounds = []
-        idx = leaf_index
-        for tree in trees:
-            j = idx % tree.matrix.shape[0]
-            row, path = tree.open(j)
-            rounds.append({"leaf": pack_u32(row), "path": pack_u32(path)})
-            idx = j  # i_{r+1} = i_r mod N_r/2
-        queries.append({"index": leaf_index, "rounds": rounds})
+    # every query index first (opening draws nothing from the transcript),
+    # then one batched opening a round tree
+    leaf_indices = [challenger.sample_bits(log_n - 1) for _ in range(config.num_queries)]
+    idx = leaf_indices
+    rounds = []
+    for tree in trees:
+        idx = [i % tree.matrix.shape[0] for i in idx]  # i_{r+1} = i_r mod N_r/2
+        rows, paths = tree.open_many(idx)
+        rounds.append([{"leaf": pack_u32(r), "path": pack_u32(p)} for r, p in zip(rows, paths)])
+    queries = [{"index": li, "rounds": [rnd[k] for rnd in rounds]}
+               for k, li in enumerate(leaf_indices)]
 
     return {
         "roots": roots,

@@ -10,8 +10,10 @@ kernel K1 on the card (``hash/poseidon2.py``):
     ``[:8]`` — written level by level into one (2n − 1, 8) buffer whose
     views are the tree's levels (K1c, ``poseidon2_merkle_levels``).
 
-Openings read host mirrors fetched in one transfer per tree, as the JAX
-tree does.  Verification: ``verify_opening`` walks one opening with the
+Nothing committed is mirrored on the host: the root is read alone (8
+words), and ``open_many`` gathers a batch of opened rows and sibling paths
+on the tree's device, then copies that small array back in one transfer.
+Verification: ``verify_opening`` walks one opening with the
 scalar permutation; ``verify_openings_batch`` walks every query's opening
 of one tree at once on the verifier's device: its rows through K1b, each
 level of the climb through K1a.
@@ -80,32 +82,39 @@ class MerkleTree:
         self.matrix = matrix
         self._buf = build_tree(matrix)
         self.levels = tree_levels(self._buf)
-        self._host = None  # standard-form numpy mirrors for opening
-
-    def _materialize(self) -> list:
-        if self._host is None:
-            host = []
-            for a in (self.matrix, self._buf):
-                spans.host_read(a)
-                host.append(a.cpu().numpy().astype(np.uint32))
-            self._host = [host[0], *tree_levels(host[1])]
-        return self._host
+        self._root = None
 
     @property
     def root(self) -> list:
-        """Root digest as 8 ints."""
-        return [int(v) for v in self._materialize()[-1][0]]
+        """Root digest as 8 ints, read from the device the first time."""
+        if self._root is None:
+            root = self._buf[-1]
+            spans.host_read(root)
+            self._root = [int(v) for v in root.tolist()]
+        return list(self._root)
+
+    def open_many(self, indices):
+        """(rows, sibling paths) of the leaves ``indices``, in their order,
+        as uint32 numpy arrays (m, w) and (m, depth, 8): gathered level by
+        level on the tree's device, then copied to the host in one read."""
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64).reshape(-1),
+                              device=self.matrix.device)
+        m, w = idx.shape[0], self.matrix.shape[1]
+        depth = len(self.levels) - 1
+        parts, cur = [self.matrix.index_select(0, idx)], idx
+        for level in self.levels[:-1]:
+            parts.append(level.index_select(0, cur ^ 1))
+            cur = cur >> 1
+        opened = torch.cat(parts, dim=1)
+        spans.host_read(opened)
+        spans.count("opened_rows", m)
+        host = opened.cpu().numpy().astype(np.uint32)
+        return host[:, :w], host[:, w:].reshape(m, depth, DIGEST_WIDTH)
 
     def open(self, index: int):
-        """(row, sibling path) of a leaf as uint32 numpy arrays."""
-        host = self._materialize()
-        row = host[0][index]
-        path = []
-        idx = index
-        for level in host[1:-1]:
-            path.append(level[idx ^ 1])
-            idx >>= 1
-        return row, np.asarray(path, dtype=np.uint32).reshape(-1, DIGEST_WIDTH)
+        """(row, sibling path) of one leaf as uint32 numpy arrays."""
+        rows, paths = self.open_many([index])
+        return rows[0], paths[0]
 
 
 # ---------------------------------------------------------------------------

@@ -420,8 +420,7 @@ def deep_body(air: Air, t_lde, p_lde, q_matrix, opened: dict, zeta, gzeta, gamma
 
 
 def _commit(matrix: torch.Tensor):
-    """A matrix's Merkle tree and its root, read with the host mirrors
-    that the openings use (``MerkleTree._materialize``)."""
+    """A matrix's Merkle tree and its root (8 words read from the device)."""
     with spans.span("commit"):
         tree = MerkleTree(matrix)
         return tree, tree.root
@@ -497,16 +496,17 @@ def prove(
         trees = [("t", tree_t), ("q", tree_q)]
         if tree_p is not None:
             trees.insert(0, ("p", tree_p))
+        lis = [int(q["index"]) for q in fri_proof["queries"]]
+        pairs = [i for li in lis for i in (li, li + half)]
+        batches = {name: tree.open_many(pairs) for name, tree in trees}
         openings = []
-        for q in fri_proof["queries"]:
-            li = int(q["index"])
+        for k in range(len(lis)):
             rows = {}
-            for name, tree in trees:
-                row0, path0 = tree.open(li)
-                row1, path1 = tree.open(li + half)
+            for name, _ in trees:
+                row, path = batches[name]
                 rows[name] = {
-                    "lo": {"row": pack_u32(row0), "path": pack_u32(path0)},
-                    "hi": {"row": pack_u32(row1), "path": pack_u32(path1)},
+                    "lo": {"row": pack_u32(row[2 * k]), "path": pack_u32(path[2 * k])},
+                    "hi": {"row": pack_u32(row[2 * k + 1]), "path": pack_u32(path[2 * k + 1])},
                 }
             openings.append(rows)
 

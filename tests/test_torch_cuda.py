@@ -213,6 +213,21 @@ def test_sponge_and_tree_past_2_31_elements(card):
     assert torch.equal(tree[-1], buf[-1])
 
 
+def test_open_many_on_card_equals_cpu(card):
+    """A batch of openings gathered on the card, at the 3-of-4 g1mul
+    table's (2^14, 4,314), equals the batch gathered from a CPU copy."""
+    from dvt_circuits_tpu_torch.pcs.merkle import MerkleTree, merkle_root
+
+    n, w = 1 << 14, 4314
+    m = torch.as_tensor(np.random.default_rng(14).integers(0, p2.bb.P, (n, w)))
+    lo = np.random.default_rng(4314).integers(0, n // 2, 40)
+    indices = [int(i) for li in lo for i in (li, li + n // 2)] + [0, n - 1, int(lo[0])]
+    on_card, on_cpu = MerkleTree(m.to(card)), MerkleTree(m)
+    for got, want in zip(on_card.open_many(indices), on_cpu.open_many(indices)):
+        assert got.dtype == want.dtype == np.uint32 and np.array_equal(got, want)
+    assert on_card.root == on_cpu.root == merkle_root(m.to(card))
+
+
 # n = tiles * kTile + extra: one product, a tile less one, a tile and one,
 # 1,000, and 2^16 + 3 over many tiles; each also on views whose rows start 8
 # bytes off a 16-byte boundary (the wrapper copies them for the bulk copies)

@@ -6,6 +6,7 @@ vs the JAX ``hash_rows`` and the plain levels (K1c's) vs ``build_levels``."""
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax.numpy as jnp
 
@@ -15,6 +16,7 @@ from dvt_circuits_tpu.pcs import merkle as jmerkle
 from dvt_circuits_tpu_torch.hash import poseidon2 as p2
 from dvt_circuits_tpu_torch.ntt.ntt import coset_evals_to_coeffs, coset_lde, intt, ntt
 from dvt_circuits_tpu_torch.pcs import merkle
+from dvt_circuits_tpu_torch.utils import spans
 
 from .test_torch_native import jax_native_poseidon2  # noqa: F401  (autouse)
 
@@ -63,6 +65,53 @@ def test_merkle_openings_match_jax_tree_and_verify():
         assert np.array_equal(path, np.asarray(jpath))
         assert jmerkle.verify_opening(tree.root, idx, row, path)
         assert not jmerkle.verify_opening(tree.root, idx ^ 1, row, path)
+
+
+def _query_indices(n, seed):
+    """Leaf indices as the prover asks for them: unsorted lo/hi pairs
+    (i, i + n/2), then a repeat of some."""
+    lo = np.random.default_rng(seed).integers(0, max(n // 2, 1), 7).tolist()
+    pairs = [i for li in lo for i in ((li, li + n // 2) if n > 1 else (li,))]
+    return pairs + pairs[::3]
+
+
+@pytest.mark.parametrize("n, width", [(1, 5), (16, 12), (64, 30), (1024, 33)])
+def test_open_many_matches_jax_tree_and_verifies(n, width):
+    m = _matrix(n + width, (n, width))
+    tree = merkle.MerkleTree(torch.as_tensor(m))
+    jtree = jmerkle.MerkleTree(jbb.to_mont(jnp.asarray(m.astype(np.uint32))))
+    indices = _query_indices(n, n * width)
+    rows, paths = tree.open_many(indices)
+    depth = n.bit_length() - 1
+    assert rows.dtype == paths.dtype == np.uint32
+    assert rows.shape == (len(indices), width) and paths.shape == (len(indices), depth, 8)
+    for idx, row, path in zip(indices, rows, paths):
+        jrow, jpath = jtree.open(idx)
+        assert np.array_equal(row, jrow)
+        assert np.array_equal(path, np.asarray(jpath, dtype=np.uint32).reshape(depth, 8))
+        assert jmerkle.verify_opening(tree.root, idx, row, path)
+    one_row, one_path = tree.open(indices[0])
+    assert np.array_equal(one_row, rows[0]) and np.array_equal(one_path, paths[0])
+
+
+@pytest.mark.parametrize("n", [16, 1024])
+def test_root_and_open_many_read_only_the_root_and_the_opened_rows(n):
+    """Under a profiler session the reads of a commit, its root and one
+    batch of m openings are 64 + m·(w + 8·depth)·8 bytes, whatever n: no
+    whole matrix or tree goes to the host."""
+    width, indices = 30, _query_indices(n, 3)
+    mat = torch.as_tensor(_matrix(n, (n, width)))
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("reads"):
+            tree = merkle.MerkleTree(mat)
+            assert tree.root == tree.root  # read once
+            tree.open_many(indices)
+    (rec,) = spans.records()
+    spans.clear()
+    m, depth = len(indices), n.bit_length() - 1
+    assert rec.counters == {"host_syncs": 2, "d2h_bytes": 64 + m * (width + 8 * depth) * 8,
+                            "opened_rows": m}
 
 
 def _jax_std(a):

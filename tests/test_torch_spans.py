@@ -184,30 +184,31 @@ def _pre_width(table) -> int:
 
 def _reckoned_reads(container, duplexes: int) -> tuple:
     """(reads, bytes) of a prove's blocking device-to-host reads, from its
-    tables' shapes and STARK parameters: each committed matrix and its
-    (2n − 1) × 8 tree at int64, the openings at ζ and g·ζ, the opened
-    values' root, each FRI layer's pair matrix and tree, the final
+    tables' shapes and STARK parameters: each committed tree's root and
+    its one batch of opened rows and sibling paths at int64 (two rows a
+    query of each p, t and q tree, one of each FRI layer's tree), the
+    openings at ζ and g·ζ, the opened values' root, the final
     coefficients, the grind's 8-byte batches, and the 16-word duplexes."""
     cfg = TEST_CONFIG
     final_len = (1 << cfg.log_final_poly_len) * cfg.blowup
     reads = nbytes = 0
 
-    def tree(rows, width):
+    def tree(rows, width, opened):
         nonlocal reads, nbytes
         reads += 2
-        nbytes += rows * width * 8 + (2 * rows - 1) * 8 * 8
+        nbytes += 8 * 8 + opened * (width + 8 * (rows.bit_length() - 1)) * 8
 
     for t in _tables(container):
         n_lde = (1 << t["log_n"]) << cfg.log_blowup
         pre, width, q_width = _pre_width(t), t["width"], 4 * cfg.blowup
         for w in ([pre] if pre else []) + [width, q_width]:
-            tree(n_lde, w)
+            tree(n_lde, w, 2 * cfg.fri.num_queries)
         opened = [width, width, q_width] + ([pre, pre] if pre else [])
         reads += len(opened) + 1  # the openings, then their Merkle root
         nbytes += sum(w * 4 * 8 for w in opened) + 8 * 8
         n = n_lde
         while n > final_len:
-            tree(n // 2, 8)
+            tree(n // 2, 8, cfg.fri.num_queries)
             n //= 2
         reads += 1
         nbytes += final_len * 4 * 8
