@@ -955,14 +955,15 @@ def _wrappers() -> dict:
 
 class _TreeCount:
     """Counts, while active, the Merkle trees committed (each ``MerkleTree``,
-    each ``merkle_root`` call and each sharded subtree, ``build_levels``,
-    through whichever module holds the name) and the batched opening checks
+    a sharded prover's subtree too, since ``ShardedTree`` is one; each
+    ``merkle_root`` and ``build_levels`` call, through whichever module
+    holds the name) and the batched opening checks
     (``verify_openings_batch``).  ``check`` then holds the leaf sponge to one
     launch for each of them: a tree that took more or none, or rows hashed
     by another route, fail the run."""
 
     def __enter__(self):
-        from dvt_circuits_tpu_torch.parallel import dist_fri, dist_stark  # noqa: F401
+        from dvt_circuits_tpu_torch.parallel import dist_stark, ep_tables  # noqa: F401
         from dvt_circuits_tpu_torch.pcs import fri, merkle  # noqa: F401  (holders of the names)
         from dvt_circuits_tpu_torch.stark import prover, verifier  # noqa: F401
 
@@ -2528,6 +2529,7 @@ def _dist_rank(rank: int, world: int, cases: dict) -> dict:
     from dvt_circuits_tpu_torch.parallel.mesh import Mesh
     from dvt_circuits_tpu_torch.parallel.pp_pipeline import pp_commit_pipeline
     from dvt_circuits_tpu_torch.prover import pipeline
+    from dvt_circuits_tpu_torch.stark import prover
     from dvt_circuits_tpu_torch.stark.config import DEFAULT_CONFIG
 
     os.environ["DVT_DIST"] = "1"  # shard over the group even at world 1
@@ -2583,10 +2585,10 @@ def _dist_rank(rank: int, world: int, cases: dict) -> dict:
             out["pp refused"] = str(e)
     if world >= 2:
         run("finalization", prove("finalization", cases["finalization"]))
-        # each sharded phase (and any table proven on one card) timed
-        phases = [(dist_stark, name) for name in (
-            "_commit", "constraint_fold", "quotient_chunks", "_openings", "deep_body", "_fri",
-            "gather_sharded_opening")] + [(pipeline, "stark_prove")]
+        # each sharded layout's phase (and any table proven on one card) timed
+        phases = ([(dist_stark.RowBlocks, name) for name in ("lde", "tree", "quotient",
+                                                              "openings")]
+                  + [(prover, "deep_body"), (prover, "fri_prove"), (pipeline, "stark_prove")])
         run("finalization, phases timed", prove("finalization", cases["finalization"]), phases)
     return out
 

@@ -8,9 +8,11 @@ matrix, then folds with a BB4 challenge β:
     v'(x²) = (v(x) + v(−x))/2 + β · (v(x) − v(−x))/(2x)
 
 The final codeword is sent as coefficients (coset iNTT, unscale,
-truncate); then the proof-of-work grind and the query openings.  The
-verifier walks every query's fold chain at once, as (nq, 4) tensors on the
-challenger's device.
+truncate); then the proof-of-work grind and the query openings.
+``fri_prove`` states the protocol once; a layout (``OneCardFri``, or the
+sharded prover's row blocks) builds each round's tree and hands it the
+rows to fold.  The verifier walks every query's fold chain at once, as
+(nq, 4) tensors on the challenger's device.
 """
 
 from __future__ import annotations
@@ -45,12 +47,6 @@ class FriConfig:
         return 1 << self.log_blowup
 
 
-def _pair_matrix(codeword: torch.Tensor) -> torch.Tensor:
-    """(N, 4) BB4 codeword → (N/2, 8) leaf matrix [v[i] ‖ v[i+N/2]]."""
-    n = codeword.shape[0]
-    return torch.cat([codeword[: n // 2], codeword[n // 2 :]], dim=1)
-
-
 @lru_cache(maxsize=None)
 def _inv2x_table(shift: int, log_n: int, device: torch.device) -> torch.Tensor:
     """1/(2x_j) for x_j = shift·ω^j, j < N/2."""
@@ -59,14 +55,31 @@ def _inv2x_table(shift: int, log_n: int, device: torch.device) -> torch.Tensor:
     return bb.inv(two_x)
 
 
-def fold(codeword: torch.Tensor, beta, shift: int) -> torch.Tensor:
-    """One fold round: (N, 4) codeword over shift·K → (N/2, 4)."""
-    n = codeword.shape[0]
-    v0, v1 = codeword[: n // 2], codeword[n // 2 :]
-    inv2x = _inv2x_table(shift, n.bit_length() - 1, codeword.device)
+def fold(v0: torch.Tensor, v1: torch.Tensor, beta, inv2x: torch.Tensor) -> torch.Tensor:
+    """One fold round on (rows, 4) values v(x), v(−x) and 1/(2x) at the same
+    rows → v'(x²)."""
     even = ext.add(v0, v1) * _HALF % P
     odd = ext.mul_base(ext.sub(v0, v1), inv2x)
-    return ext.add(even, ext.mul(ext.tensor(beta, codeword.device), odd))
+    return ext.add(even, ext.mul(ext.tensor(beta, v0.device), odd))
+
+
+class OneCardFri:
+    """``fri_prove``'s layout of the codeword: whole on one device.  A
+    layout says where the codeword's rows live: ``blocks`` (how many row
+    blocks make the codeword), ``fri_round`` (round r's pair-leaf tree, the
+    v(x) and v(−x) rows this rank folds, and the first of their rows in the
+    round's half) and ``fri_last`` (the whole codeword after the rounds)."""
+
+    blocks = 1
+
+    def fri_round(self, codeword: torch.Tensor, r: int):
+        """The (N/2, 8) leaf matrix [v[i] ‖ v[i+N/2]] committed."""
+        half = codeword.shape[0] // 2
+        v0, v1 = codeword[:half], codeword[half:]
+        return MerkleTree(torch.cat([v0, v1], dim=1)), v0, v1, 0
+
+    def fri_last(self, codeword: torch.Tensor, size: int, r: int) -> torch.Tensor:
+        return codeword
 
 
 def final_coefficients(codeword: torch.Tensor, shift: int, log_blowup: int) -> list:
@@ -85,26 +98,34 @@ def final_coefficients(codeword: torch.Tensor, shift: int, log_blowup: int) -> l
 
 
 def fri_prove(codeword: torch.Tensor, shift: int, config: FriConfig,
-              challenger: DuplexChallenger) -> dict:
+              challenger: DuplexChallenger, layout=None) -> dict:
     """Commit-fold an (N, 4) BB4 codeword; returns the proof dict in the
-    JAX package's format.  ``shift`` is the coset shift of its domain."""
-    n = codeword.shape[0]
+    JAX package's format.  ``shift`` is the coset shift of its domain;
+    ``layout`` (default ``OneCardFri``) where its rows live: a sharded one
+    passes this rank's row block."""
+    layout = layout or OneCardFri()
+    n = codeword.shape[0] * layout.blocks
     log_n = n.bit_length() - 1
     assert 1 << log_n == n
     final_len = (1 << config.log_final_poly_len) * config.blowup
 
-    trees = []
+    rounds = []  # (tree, leaves) a round
     roots = []
     shift_r = shift % P
-    while codeword.shape[0] > final_len:
-        tree = MerkleTree(_pair_matrix(codeword))
-        trees.append(tree)
+    size = n
+    while size > final_len:
+        tree, v0, v1, lo = layout.fri_round(codeword, len(rounds))
+        rounds.append((tree, size // 2))
         roots.append(tree.root)
         challenger.observe_many(tree.root)
         beta = challenger.sample_ext()
-        codeword = fold(codeword, beta, shift_r)
+        inv2x = _inv2x_table(shift_r, size.bit_length() - 1, codeword.device)
+        codeword = fold(v0, v1, beta, inv2x[lo : lo + v0.shape[0]])
+        del v0, v1
         shift_r = shift_r * shift_r % P
+        size //= 2
 
+    codeword = layout.fri_last(codeword, size, len(rounds))
     final_coeffs = final_coefficients(codeword, shift_r, config.log_blowup)
     for c in final_coeffs:
         challenger.observe_ext(c)
@@ -115,12 +136,12 @@ def fri_prove(codeword: torch.Tensor, shift: int, config: FriConfig,
     # then one batched opening a round tree
     leaf_indices = [challenger.sample_bits(log_n - 1) for _ in range(config.num_queries)]
     idx = leaf_indices
-    rounds = []
-    for tree in trees:
-        idx = [i % tree.matrix.shape[0] for i in idx]  # i_{r+1} = i_r mod N_r/2
+    opened = []
+    for tree, leaves in rounds:
+        idx = [i % leaves for i in idx]  # i_{r+1} = i_r mod N_r/2
         rows, paths = tree.open_many(idx)
-        rounds.append([{"leaf": pack_u32(r), "path": pack_u32(p)} for r, p in zip(rows, paths)])
-    queries = [{"index": li, "rounds": [rnd[k] for rnd in rounds]}
+        opened.append([{"leaf": pack_u32(r), "path": pack_u32(p)} for r, p in zip(rows, paths)])
+    queries = [{"index": li, "rounds": [rnd[k] for rnd in opened]}
                for k, li in enumerate(leaf_indices)]
 
     return {

@@ -84,32 +84,40 @@ class MerkleTree:
         self.levels = tree_levels(self._buf)
         self._root = None
 
+    def _root_words(self) -> torch.Tensor:
+        return self._buf[-1]
+
     @property
     def root(self) -> list:
         """Root digest as 8 ints, read from the device the first time."""
         if self._root is None:
-            root = self._buf[-1]
+            root = self._root_words()
             spans.host_read(root)
             self._root = [int(v) for v in root.tolist()]
         return list(self._root)
 
-    def open_many(self, indices):
-        """(rows, sibling paths) of the leaves ``indices``, in their order,
-        as uint32 numpy arrays (m, w) and (m, depth, 8): gathered level by
-        level on the tree's device, then copied to the host in one read."""
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64).reshape(-1),
-                              device=self.matrix.device)
-        m, w = idx.shape[0], self.matrix.shape[1]
-        depth = len(self.levels) - 1
+    def _gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """Each leaf's row and its sibling path, side by side: (m, w +
+        8·depth) on the tree's device, an ``index_select`` a level."""
         parts, cur = [self.matrix.index_select(0, idx)], idx
         for level in self.levels[:-1]:
             parts.append(level.index_select(0, cur ^ 1))
             cur = cur >> 1
-        opened = torch.cat(parts, dim=1)
+        return torch.cat(parts, dim=1)
+
+    def open_many(self, indices):
+        """(rows, sibling paths) of the leaves ``indices``, in their order,
+        as uint32 numpy arrays (m, w) and (m, depth, 8): gathered on the
+        tree's device (``_gather``), then copied to the host in one read."""
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64).reshape(-1),
+                              device=self.matrix.device)
+        opened = self._gather(idx)
+        m, w = opened.shape[0], self.matrix.shape[1]
         spans.host_read(opened)
         spans.count("opened_rows", m)
         host = opened.cpu().numpy().astype(np.uint32)
-        return host[:, :w], host[:, w:].reshape(m, depth, DIGEST_WIDTH)
+        return host[:, :w], host[:, w:].reshape(m, (host.shape[1] - w) // DIGEST_WIDTH,
+                                                DIGEST_WIDTH)
 
     def open(self, index: int):
         """(row, sibling path) of one leaf as uint32 numpy arrays."""

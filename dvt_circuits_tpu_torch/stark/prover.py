@@ -7,15 +7,20 @@ transcript of ``stark/host_prover.py`` / ``stark/fused.py``:
   → chunked quotient commit → openings at ζ, g·ζ → γ-batched DEEP
   codeword → FRI commit/fold/grind/query.
 
-All arrays are int64 standard-form tensors on one device; the Fiat–Shamir
-transcript is the host-side ``DuplexChallenger`` whose permutations run on
-that device.  Constraint evaluation takes an AIR's ``eval_tensor`` where it
-has one (``TensorBuilder``: whole (rows, m) constraint groups over row
-chunks of the LDE domain, as the reference's prover does), else drives its
-generic ``eval`` with a column algebra (``ProverBuilder``: every builder
-value is a full LDE column).  No phase copies a whole LDE matrix to read the
-next row.  The proof dict is in exactly the format of the JAX provers
-(``stark/fused.py:598-624``).
+``prove`` is the one statement of the protocol: the input checks, the
+transcript's order, the phases with their spans and the proof dict.  It
+takes a layout, which says where each matrix's rows live and how it is
+committed and opened: ``OneCard`` (the default: every matrix whole on one
+device) or the sharded prover's ``parallel.dist_stark.RowBlocks``; this
+package imports nothing of ``parallel/``.  Arrays are int64 standard-form
+tensors; the Fiat–Shamir transcript is the host-side ``DuplexChallenger``
+whose permutations run on the prover's device.  Constraint evaluation
+takes an AIR's ``eval_tensor`` where it has one (``TensorBuilder``: whole
+(rows, m) constraint groups over row chunks of the LDE domain, as the
+reference's prover does), else drives its generic ``eval`` with a column
+algebra (``ProverBuilder``: every builder value is a full LDE column).
+No phase copies a whole LDE matrix to read the next row.  The proof dict
+is in exactly the format of the JAX provers (``stark/fused.py:598-624``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..field import babybear as bb
 from ..field import ext
 from ..ntt.ntt import coeffs_to_coset_evals, coset_evals_to_coeffs, coset_lde
 from ..pcs.challenger import DuplexChallenger
-from ..pcs.fri import fri_prove
+from ..pcs.fri import OneCardFri, fri_prove
 from ..pcs.merkle import MerkleTree, merkle_root
 from ..utils import spans
 from ..utils.packing import pack_u32
@@ -419,11 +424,64 @@ def deep_body(air: Air, t_lde, p_lde, q_matrix, opened: dict, zeta, gzeta, gamma
 # ---------------------------------------------------------------------------
 
 
-def _commit(matrix: torch.Tensor):
-    """A matrix's Merkle tree and its root (8 words read from the device)."""
+class OneCard(OneCardFri):
+    """``prove``'s default layout: every matrix whole on one device.  A
+    layout says where each matrix's rows live and how it is committed and
+    opened: ``lde`` (host columns → their LDE as the openings read it, and
+    its rows as the quotient and DEEP read them), ``tree`` (a committed
+    matrix: ``root``, ``open_many``, its rows as ``matrix``), ``domain``
+    (the domain tables at those rows), ``quotient`` (→ the quotient's rows,
+    its chunks' coefficients, the constraint count), ``openings`` (the
+    columns at ζ and g·ζ) and ``OneCardFri``'s FRI rounds.  The sharded
+    prover's is ``parallel.dist_stark.RowBlocks``."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def lde(self, cols, config: StarkConfig):
+        cols = np.asarray(cols).astype(np.int64, copy=False)
+        lde = lde_body(torch.as_tensor(cols, device=self.device), config)
+        return lde, lde
+
+    def tree(self, rows: torch.Tensor) -> MerkleTree:
+        return MerkleTree(rows)
+
+    def domain(self, log_n: int, config: StarkConfig) -> dict:
+        return _domain_tables(log_n, config.log_blowup, config.shift, self.device)
+
+    def quotient(self, air: Air, t_rows, p_rows, alpha, publics, tables, log_n: int,
+                 config: StarkConfig):
+        return quotient_body(air, t_rows, p_rows, alpha, publics, tables, log_n, config)
+
+    def openings(self, air: Air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n: int,
+                 config: StarkConfig) -> dict:
+        return openings_body(air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, config)
+
+
+def _commit(layout, rows: torch.Tensor):
+    """A matrix's tree as ``layout`` commits it, and its root (8 words read
+    from the device)."""
     with spans.span("commit"):
-        tree = MerkleTree(matrix)
+        tree = layout.tree(rows)
         return tree, tree.root
+
+
+def _lde_commit(layout, cols, config: StarkConfig):
+    """The LDE of the host columns ``cols()`` and its tree: (LDE, tree)."""
+    with spans.span("lde"):
+        lde, rows = layout.lde(cols(), config)
+    return lde, _commit(layout, rows)[0]
+
+
+def commit_columns(air: Air, trace, config: StarkConfig, layout) -> dict:
+    """The phases of ``prove`` that draw nothing from the transcript, for
+    ``prove(..., precommit=...)`` on the same layout: the preprocessed and
+    trace columns' (LDE, tree) as "p" (None without preprocessed columns)
+    and "t"."""
+    trace = np.asarray(trace)
+    pre = (_lde_commit(layout, lambda: air.preprocessed_trace(trace.shape[0]), config)
+           if air.preprocessed_width else None)
+    return {"p": pre, "t": _lde_commit(layout, lambda: trace, config)}
 
 
 def prove(
@@ -432,10 +490,15 @@ def prove(
     public_values: Sequence[int],
     config: StarkConfig,
     challenger: DuplexChallenger,
+    layout=None,
+    precommit: dict | None = None,
 ) -> dict:
-    """Prove one AIR instance on ``challenger.device``; chains onto the
-    challenger's transcript.  ``trace``: (N, width) standard-form ints."""
-    dev = challenger.device
+    """Prove one AIR instance; chains onto the challenger's transcript.
+    ``trace``: (N, width) standard-form ints.  ``layout`` (default
+    ``OneCard`` on ``challenger.device``) says where the matrices' rows
+    live; ``precommit``: ``commit_columns``'s result for this table and
+    layout, made ahead."""
+    layout = layout or OneCard(challenger.device)
     trace = np.asarray(trace)
     n, width = trace.shape
     log_n = n.bit_length() - 1
@@ -448,48 +511,46 @@ def prove(
         raise ValueError("wrong number of public values")
     pre_width = air.preprocessed_width
     n_lde = n << config.log_blowup
+    done = precommit or {}
 
     challenger.observe(log_n)
     challenger.observe(width)
     challenger.observe_many(publics)
 
     # 0. preprocessed (fixed) columns — part of the verifying key
-    tree_p = None
-    p_lde = torch.zeros((n_lde, 0), dtype=torch.int64, device=dev)
+    p_lde = tree_p = None
     if pre_width:
-        with spans.span("lde"):
-            pre = np.asarray(air.preprocessed_trace(n), dtype=np.int64)
-            p_lde = lde_body(torch.as_tensor(pre, device=dev), config)
-        tree_p, root_p = _commit(p_lde)
-        challenger.observe_many(root_p)
+        p_lde, tree_p = done.get("p") or _lde_commit(
+            layout, lambda: air.preprocessed_trace(n), config)
+        challenger.observe_many(tree_p.root)
 
     # 1. trace LDE + commit
-    with spans.span("lde"):
-        t_lde = lde_body(torch.as_tensor(trace.astype(np.int64, copy=False), device=dev), config)
-    tree_t, root_t = _commit(t_lde)
-    challenger.observe_many(root_t)
+    t_lde, tree_t = done.get("t") or _lde_commit(layout, lambda: trace, config)
+    challenger.observe_many(tree_t.root)
     alpha = challenger.sample_ext()
+    t_rows = tree_t.matrix
+    p_rows = tree_p.matrix if pre_width else t_rows.new_zeros((t_rows.shape[0], 0))
 
     # 2.–3. constraint quotient + chunk commitment
     with spans.span("quotient"):
-        tables = _domain_tables(log_n, config.log_blowup, config.shift, dev)
-        q_matrix, q_col_coeffs, count = quotient_body(
-            air, t_lde, p_lde, alpha, publics, tables, log_n, config
+        tables = layout.domain(log_n, config)
+        q_rows, q_col_coeffs, count = layout.quotient(
+            air, t_rows, p_rows, alpha, publics, tables, log_n, config
         )
-    tree_q, root_q = _commit(q_matrix)
+    tree_q, root_q = _commit(layout, q_rows)
     challenger.observe_many(root_q)
     zeta = challenger.sample_ext()
     gzeta = ext.s_mul_base(zeta, bb.two_adic_generator(log_n))
 
     with spans.span("open"):
         # 4. openings at ζ and g·ζ; the transcript absorbs their Merkle digest
-        opened = openings_body(air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, config)
-        challenger.observe_many(opened_digest_std(opened, dev))
+        opened = layout.openings(air, t_lde, p_lde, q_col_coeffs, zeta, gzeta, log_n, config)
+        challenger.observe_many(opened_digest_std(opened, challenger.device))
         gamma = challenger.sample_ext()
 
         # 5. DEEP codeword over the LDE domain, 6. FRI on it
-        G = deep_body(air, t_lde, p_lde, q_matrix, opened, zeta, gzeta, gamma, tables, config)
-        fri_proof = fri_prove(G, config.shift, config.fri, challenger)
+        G = deep_body(air, t_rows, p_rows, q_rows, opened, zeta, gzeta, gamma, tables, config)
+        fri_proof = fri_prove(G, config.shift, config.fri, challenger, layout)
 
         # 7. outer openings at i and i + N/2 for each committed matrix
         half = n_lde // 2
@@ -515,7 +576,7 @@ def prove(
         "log_n": log_n,
         "width": width,
         "public_values": publics,
-        "root_t": root_t,
+        "root_t": tree_t.root,
         "root_q": root_q,
         "opened_t_zeta": pack_u32(opened["t_zeta"]),
         "opened_t_gzeta": pack_u32(opened["t_gzeta"]),
@@ -525,7 +586,7 @@ def prove(
         "constraint_count": count,
     }
     if pre_width:
-        proof["root_p"] = root_p
+        proof["root_p"] = tree_p.root
         proof["opened_p_zeta"] = pack_u32(opened["p_zeta"])
         proof["opened_p_gzeta"] = pack_u32(opened["p_gzeta"])
     return proof

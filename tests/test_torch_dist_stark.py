@@ -15,9 +15,16 @@ under ``DVT_PROVER=host``), on every rank:
     packages' verifiers;
   * ``prove_batch`` on {"dp": 2, "sp": 2} against proves one by one.
 
+The sharded prover is the single-device ``prove`` on another layout, so the
+ranks also hold what the two share: the sharded tree's ``open_many``
+against ``MerkleTree.open_many`` of the whole matrix at d = 2, 4, 8, and the
+phase spans of a d = 2 ``dist_prove`` (rank 0, under a profiler session)
+against the single-device prove's.
+
 The rank functions live here, so this module imports no jax at its top
 level (a spawned rank imports it by name)."""
 
+import functools
 import os
 
 import numpy as np
@@ -26,6 +33,33 @@ import torch
 
 SPAWN_TIMEOUT = 400
 FIB_ROWS = 64
+TREE_ROWS, TREE_WIDTH = 64, 9
+
+
+def _tree_matrix() -> torch.Tensor:
+    rng = np.random.default_rng(19)
+    return torch.as_tensor(rng.integers(0, 2**31 - 2**27 + 1, (TREE_ROWS, TREE_WIDTH)))
+
+
+def _tree_indices(d: int) -> list:
+    """A leaf in every rank's block, the last leaf, and a repeated index."""
+    s = TREE_ROWS // d
+    return [b * s + (3 * b + 1) % s for b in range(d)] + [TREE_ROWS - 1, s + 1, s + 1]
+
+
+def _phase_names(fn):
+    """``fn()`` and the names of the spans it recorded under a profiler
+    session, in the order they started."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvt_circuits_tpu_torch.utils import spans
+
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        value = fn()
+    names = [r.name for r in sorted(spans.records(), key=lambda r: r.start_ns)]
+    spans.clear()
+    return value, names
 
 
 def _stream_words():
@@ -57,15 +91,24 @@ def _batch_data():
 
 def _rank_tables(rank: int, world: int) -> dict:
     from dvt_circuits_tpu_torch.parallel import dist_stark
+    from dvt_circuits_tpu_torch.parallel.dist_merkle import ShardedTree
     from dvt_circuits_tpu_torch.parallel.mesh import Mesh
     from dvt_circuits_tpu_torch.stark.config import TEST_CONFIG
 
     entries = _entries("dvt_circuits_tpu_torch")
     air, trace, publics = entries[0]
-    out = {"stream": {}}
+    out = {"stream": {}, "open_many": {}}
     for d in (1, 2, 4, 8):
         mesh = Mesh({"dp": world // d, "sp": d}, "cpu")
-        out["stream"][d] = dist_stark.dist_prove(air, trace, publics, TEST_CONFIG, mesh)
+        prove = functools.partial(dist_stark.dist_prove, air, trace, publics, TEST_CONFIG, mesh)
+        if d == 2 and rank == 0:
+            out["stream"][d], out["spans"] = _phase_names(prove)
+        else:
+            out["stream"][d] = prove()
+        if d > 1:
+            ax, s = mesh.axis("sp"), TREE_ROWS // d
+            tree = ShardedTree(_tree_matrix()[ax.index * s : (ax.index + 1) * s], ax, d)
+            out["open_many"][d] = (tree.root, tree.open_many(_tree_indices(d)))
     mesh = Mesh({"sp": world}, "cpu")
     out["chained"] = dist_stark.dist_prove_tables(entries, TEST_CONFIG, mesh)
     out["ep"] = dist_stark.ep_prove_tables(entries, TEST_CONFIG, mesh)
@@ -137,8 +180,11 @@ def single_proofs(one_thread):
     air, trace, publics = ours[0]
     jair, jtrace, jpublics = theirs[0]
     ch, jch = DuplexChallenger("cpu"), JaxChallenger()
+    stream, names = _phase_names(lambda: prove(air, trace, publics, TEST_CONFIG,
+                                               DuplexChallenger("cpu")))
     return {
-        "stream": prove(air, trace, publics, TEST_CONFIG, DuplexChallenger("cpu")),
+        "stream": stream,
+        "stream_spans": names,
         "stream_jax": host_prove(jair, jtrace, jpublics, JAX_TEST_CONFIG),
         "chained": [prove(a, t, p, TEST_CONFIG, ch) for a, t, p in ours],
         "chained_jax": [host_prove(a, t, p, JAX_TEST_CONFIG, jch) for a, t, p in theirs],
@@ -150,6 +196,25 @@ def test_dist_prove_stream_table_equals_single_and_jax(tables, single_proofs, d)
     assert single_proofs["stream"] == single_proofs["stream_jax"]
     for out in tables:
         assert out["stream"][d] == single_proofs["stream"]
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_sharded_tree_open_many_equals_merkle_tree_on_the_whole_matrix(tables, d):
+    from dvt_circuits_tpu_torch.pcs.merkle import MerkleTree
+
+    whole = MerkleTree(_tree_matrix())
+    want_rows, want_paths = whole.open_many(_tree_indices(d))
+    assert want_paths.shape == (d + 3, TREE_ROWS.bit_length() - 1, 8)
+    for out in tables:
+        root, (rows, paths) = out["open_many"][d]
+        assert root == whole.root
+        assert np.array_equal(rows, want_rows) and np.array_equal(paths, want_paths)
+
+
+def test_sharded_prove_records_the_single_device_phase_spans(tables, single_proofs):
+    names = single_proofs["stream_spans"]
+    assert {"lde", "commit", "quotient", "open"} <= set(names)
+    assert tables[0]["spans"] == names
 
 
 @pytest.mark.parametrize("how", ["chained", "ep", "ep_one"])
